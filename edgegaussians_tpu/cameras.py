@@ -3,7 +3,7 @@
 Re-implements the reference camera semantics (reference:
 edgegaussians/cameras/cameras.py) functionally: a camera is an immutable
 record holding intrinsics K and a world-to-camera 4x4 view matrix. Batches of
-cameras are stacked into arrays for device-side rendering — the TPU render
+cameras are stacked into arrays for device-side rendering — the render
 path consumes ``Ks [V,3,3]`` and ``viewmats [V,4,4]``, never Python objects.
 
 Conventions (matching the reference / COLMAP):
@@ -149,7 +149,7 @@ class Camera:
 def stack_cameras(cameras: Sequence[Camera]):
     """Stack cameras into (Ks [V,3,3] f32, viewmats [V,4,4] f32, H, W).
 
-    All cameras must share a resolution — the batched TPU render path keeps
+    All cameras must share a resolution — the batched render path keeps
     the pixel grid static per compile.
     """
     hs = {c.height for c in cameras}

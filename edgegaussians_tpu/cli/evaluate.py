@@ -121,6 +121,9 @@ def main(argv=None):
             pickle.dump(metrics_pr, f)
         with open(os.path.join(out_dir, "acc_comp_chamfer.pkl"), "wb") as f:
             pickle.dump(per_scan, f)
+    if not per_scan:
+        print("no scan had predictions to evaluate")
+        return 1
     return 0
 
 

@@ -31,7 +31,12 @@ def main(argv=None):
     ap.add_argument("--ckpt_path", type=str, default=None)
     ap.add_argument("--force_rerun", action="store_true")
     ap.add_argument("--backend", type=str, default="auto",
-                    choices=["auto", "pallas", "jax"])
+                    choices=["auto", "gpu", "interpret", "jax"],
+                    help="render backend (ops/rasterize.py resolve_backend): "
+                         "'auto' = the config's rasterizer_backend, 'gpu' "
+                         "on a GPU and 'jax' elsewhere; 'gpu' = compiled "
+                         "GPU compositor; 'interpret' = the same kernels "
+                         "on the Pallas interpreter; 'jax' = plain XLA")
     ap.add_argument("--profile_dir", type=str, default=None,
                     help="dump a jax.profiler trace of steady-state epochs "
                          "here (view in TensorBoard's trace viewer)")

@@ -7,8 +7,8 @@ into typed dataclasses. Unknown keys are tolerated and missing keys take
 dataclass defaults, mirroring the reference's ``dacite.from_dict`` behavior
 (reference: edgegaussians/models/edge_gs.py:73).
 
-TPU-specific additions (capacity, sharding, precision) live in their own
-fields with defaults chosen so that unmodified reference configs run.
+This framework's additions (capacities, tiling, sharding) live in their
+own fields with defaults chosen so that unmodified reference configs run.
 """
 
 from __future__ import annotations
@@ -33,6 +33,39 @@ def _from_dict(cls, data: Dict[str, Any]):
     return cls(**kwargs)
 
 
+_REMOVED_PAIR_KERNELS = (True, 1, "1", "true", "block")
+_REMOVED_BACKENDS = ("pallas", "pallas_v1")
+
+
+def normalize_pair_kernel(pk):
+    """``tile_pair_kernel`` -> False | "seg"; the removed block-window
+    kernel's values (True / 1 / "block") raise."""
+    key = pk.lower() if isinstance(pk, str) else pk
+    if key is None or key is False or key in (0, "0", "false", "off"):
+        return False
+    if key in (2, "2", "seg"):
+        return "seg"
+    if key is True or key in _REMOVED_PAIR_KERNELS:
+        raise ValueError(
+            f"tile_pair_kernel={pk!r}: the block-window pair kernel was "
+            "removed; use 'seg' (segmented pair compositor) or false")
+    raise ValueError(f"tile_pair_kernel: unknown value {pk!r} "
+                     "(expected false or 'seg')")
+
+
+def normalize_backend(backend: str) -> str:
+    """Validate a render backend name (resolution happens at run time in
+    ops.rasterize.resolve_backend)."""
+    if backend in _REMOVED_BACKENDS:
+        raise ValueError(
+            f"rasterizer_backend={backend!r}: the Pallas compositors of that "
+            "name were removed; use 'auto', 'gpu', 'interpret' or 'jax'")
+    if backend not in ("auto", "gpu", "interpret", "jax"):
+        raise ValueError(f"rasterizer_backend: unknown value {backend!r} "
+                         "(expected 'auto', 'gpu', 'interpret' or 'jax')")
+    return backend
+
+
 @dataclass
 class ModelConfig:
     """Gaussian model + density-control config.
@@ -44,7 +77,7 @@ class ModelConfig:
 
     if_duplicate_high_pos_grad: bool = True
     # 'absolute' / 'percentile_top' mirror the reference (edge_gs.py:544-576);
-    # 'top_fraction' is a TPU-native addition: duplicate the top
+    # 'top_fraction' is this framework's addition: duplicate the top
     # dup_threshold_value fraction of alive Gaussians by absgrad
     # (count-deterministic; see models/density.py)
     dup_threshold_type: str = "percentile"
@@ -93,7 +126,7 @@ class ModelConfig:
     reset_opacity_at_epoch: List[int] = field(default_factory=lambda: [100])
     reset_opacity_value: float = 0.08
 
-    # --- TPU-native additions ------------------------------------------------
+    # --- framework additions ------------------------------------------------
     # Fixed Gaussian capacity for jit-safe densification. 0 = auto
     # (next power of two >= 4x the seed count).
     max_num_gaussians: int = 0
@@ -127,45 +160,32 @@ class ModelConfig:
     # tile_pair_budget (that render already dropped pairs): 'fallback'
     # rebuilds the epoch program on the dense frame path for the rest of
     # the run (one re-jit; every later render is exact), 'error' raises,
-    # 'warn' only logs (the pre-round-3 behavior). Budgets shipped in
-    # configs are whole-run audited (scripts/pair_budget_audit.py), so
-    # this triggers only on scenes denser than the audited set.
+    # 'warn' only logs. Budgets shipped in configs are whole-run audited
+    # (scripts/pair_budget_audit.py), so this triggers only on scenes
+    # denser than the audited set.
     tile_pair_overflow_action: str = "fallback"
-    # Pair-domain DMA compositor selection. False = dense-frame two-level
-    # path; True (or "block") = v4 block-window kernel (ops/pallas_pair.py,
-    # measured 1.5x the dense path); "seg" = v5 segmented pair-dense kernel
-    # (ops/pallas_segpair.py — what every shipped config runs). Needs
-    # tile_pair_budget > 0. Single-level per-tile capacity semantics:
-    # every tile composites min(count, tile_gaussian_capacity) pairs
-    # (strictly MORE complete than the two-level k1/t2/k2 truncation).
-    # Values are normalized/validated at config load (__post_init__).
+    # Compositor selection. False = dense-frame two-level path (pure XLA);
+    # "seg" = the segmented pair compositor (ops/segpair.py — what every
+    # shipped config runs). "seg" needs tile_pair_budget > 0 and has
+    # single-level per-tile capacity semantics: every tile composites
+    # min(count, tile_gaussian_capacity) pairs (strictly MORE complete
+    # than the two-level k1/t2/k2 truncation). Values are normalized and
+    # validated at config load (__post_init__).
     tile_pair_kernel: bool | str = False
-    # Order compositor frame rows by descending tile occupancy: the kernels
-    # predicate per TILE_BLOCK on the block max, so homogeneous blocks cut
-    # predicated slot work ~2x on sparse edge scenes. Bitwise-identical
-    # renders (tests/test_rasterize.py).
+    # Order two-level frame rows by descending tile occupancy, making the
+    # overflow list a contiguous prefix. Bitwise-identical renders
+    # (tests/test_rasterize.py).
     tile_occupancy_sort: bool = True
     # Rasterizer tile size in pixels (reference BLOCK_WIDTH=16, edge_gs.py:233).
     tile_size: int = 16
-    # 'pallas' on TPU, 'jax' pure-XLA fallback, 'reference' per-pixel oracle.
+    # 'auto' | 'gpu' (compiled GPU compositor) | 'interpret' (the same
+    # kernels on the Pallas interpreter) | 'jax' (plain XLA); resolved by
+    # ops.rasterize.resolve_backend.
     rasterizer_backend: str = "auto"
 
     def __post_init__(self):
-        pk = self.tile_pair_kernel
-        if isinstance(pk, str):
-            norm = {"0": False, "false": False, "off": False,
-                    "1": True, "true": True, "block": True,
-                    "2": "seg", "seg": "seg"}
-            if pk.lower() not in norm:
-                raise ValueError(
-                    f"tile_pair_kernel: unknown value {pk!r} "
-                    "(expected false/true/'block'/'seg')")
-            self.tile_pair_kernel = norm[pk.lower()]
-        elif isinstance(pk, int) and not isinstance(pk, bool):
-            if pk not in (0, 1, 2):
-                raise ValueError(
-                    f"tile_pair_kernel: unknown value {pk!r}")
-            self.tile_pair_kernel = (False, True, "seg")[pk]
+        self.tile_pair_kernel = normalize_pair_kernel(self.tile_pair_kernel)
+        self.rasterizer_backend = normalize_backend(self.rasterizer_backend)
 
 
 @dataclass
@@ -235,7 +255,7 @@ class TrainingConfig:
     weights_update_freq: int = 1    # threaded but unused in the reference
     optim: OptimConfig = field(default_factory=OptimConfig)
     loss: LossConfig = field(default_factory=LossConfig)
-    # --- TPU-native additions ---
+    # --- framework additions ---
     # 'per_view': one optimizer step per view (reference-faithful;
     #  train_gaussians.py:71-106). 'view_batch': average grads over a view
     #  batch per step (enables data parallelism over views).
@@ -244,7 +264,7 @@ class TrainingConfig:
     seed: int = 0
     checkpoint_interval: int = 0     # epochs; 0 = only final (reference saves once)
     log_interval: int = 1
-    # TPU-native approximate top-k (recall 0.99) for the direction-loss kNN;
+    # approximate top-k (lax.approx_max_k) for the direction-loss kNN;
     # set False for sklearn-exact neighbor sets (reference behavior).
     approx_knn: bool = True
 
@@ -298,7 +318,7 @@ class ParametricFittingConfig:
 
 @dataclass
 class ParallelConfig:
-    """TPU scale-out config — no reference counterpart (single-GPU there)."""
+    """Multi-device scale-out config — no reference counterpart."""
     # Mesh axis sizes; 0 = use all local devices on the 'data' axis.
     data_axis: int = 0        # shards views (DP)
     tile_axis: int = 1        # shards image tiles within a view (CP analog)

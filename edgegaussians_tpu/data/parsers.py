@@ -11,7 +11,7 @@ edgegaussians/data/dataparsers.py):
 
 Unlike the reference (a Python list of per-view dicts consumed one view at a
 time), parsing here ends in :class:`SceneViews` — stacked ``[V,H,W]`` image
-and ``[V,...]`` camera arrays, the static-shape batch the jitted TPU train
+and ``[V,...]`` camera arrays, the static-shape batch the jitted train
 step consumes directly.
 """
 
@@ -23,10 +23,9 @@ from pathlib import Path
 from typing import List, Optional
 
 import numpy as np
-from PIL import Image
 
 from edgegaussians_tpu.cameras import Camera, stack_cameras
-from edgegaussians_tpu.io import colmap as colmap_io
+from edgegaussians_tpu.io import colmap as colmap_io, png
 
 
 @dataclass
@@ -73,10 +72,7 @@ def load_image_grayscale(image_dir: str, image_name: str) -> np.ndarray:
                     break
         if not path.exists():
             raise FileNotFoundError(f"Image file not found: {path}")
-    im = Image.open(path)
-    if im.mode != "L":
-        im = im.convert("L")
-    return np.asarray(im, dtype=np.float32)
+    return png.to_gray(png.read_png(path)).astype(np.float32)
 
 
 class EMAPParser:

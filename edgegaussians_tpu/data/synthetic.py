@@ -251,7 +251,7 @@ def generate_scene(base_dir: str, scan_name: str, seed: int = 0,
 
     Returns the paths written.
     """
-    from PIL import Image
+    from edgegaussians_tpu.io.png import write_png
 
     rng = np.random.default_rng(seed)
     if focal is None:
@@ -278,8 +278,8 @@ def generate_scene(base_dir: str, scan_name: str, seed: int = 0,
                 img, rng, dropout=noise_dropout, n_spurious=noise_spurious,
                 intensity_jitter=noise_intensity_jitter, sigma_px=sigma_px)
         name = f"{i}_colors.png"
-        Image.fromarray((img * 255).astype(np.uint8), mode="L") \
-            .save(os.path.join(edge_dir, name))
+        write_png(os.path.join(edge_dir, name),
+                  (img * 255).astype(np.uint8))
         frames.append({"rgb_path": name,
                        "camtoworld": c2w.tolist(),
                        "intrinsics": K.tolist()})

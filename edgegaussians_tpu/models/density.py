@@ -12,8 +12,8 @@ Bug-faithful behaviors (SURVEY.md §6.5) intentionally mirrored:
   on every cull (``reset_rest=True`` default — edge_gs.py:412-429);
 - ``duplicate_high_pos_gradients`` with ``percentile_top`` compares min-max
   normalized grads against an unnormalized quantile (edge_gs.py:559-568);
-- ``cull_wayward`` computes its mask but applies nothing unless the TPU-only
-  ``cull_wayward_apply`` flag is set (reference never calls the cull —
+- ``cull_wayward`` computes its mask but applies nothing unless this
+  framework's ``cull_wayward_apply`` flag is set (reference never calls the cull —
   edge_gs.py:498-542).
 """
 
@@ -130,11 +130,8 @@ def cull_not_projecting(state: GaussianState, moments: AdamMoments,
         [state.params.means, jnp.ones((state.capacity, 1))], axis=1)  # [N,4]
     P = jnp.einsum("vij,vjk->vik", Ks, viewmats[:, :3, :4],
                    precision=jax.lax.Precision.HIGHEST)               # [V,3,4]
-    # All-2-D formulation: the natural [V,N,3] batched projection forces
-    # XLA:TPU rank-3 minor-dim-3 relayouts that compile to ~17 MB of code
-    # (the same pathology measured for direction_loss — RESULTS.md).
-    # Three [N,4] @ [4,V] matmuls give identical values in 2-D shapes.
-    # HIGHEST precision: pixel coordinates reach O(800) and bf16 default
+    # Three [N,4] @ [4,V] matmuls in 2-D shapes. HIGHEST precision: pixel
+    # coordinates reach O(800), and reduced-precision (bf16 / TF32)
     # multiplies would quantize them by +-2 px.
     hp = jax.lax.Precision.HIGHEST
     px = jnp.matmul(means_h, P[:, 0, :].T, precision=hp)              # [N,V]
@@ -145,11 +142,8 @@ def cull_not_projecting(state: GaussianState, moments: AdamMoments,
     yr = jnp.rint(py / pw).astype(jnp.int32)
     good = (xr >= 0) & (xr < w) & (yr >= 0) & (yr < h)
     flat = jnp.clip(yr, 0, h - 1) * w + jnp.clip(xr, 0, w - 1)        # [N,V]
-    # Per-view lax.scan for the mask lookups: XLA:TPU emits ~16 BYTES OF
-    # CODE PER GATHERED ELEMENT, so one N*V-element gather (or V
-    # take_along_axis ops) compiles to ~13 MB — the scan body holds ONE
-    # [N]-element gather and is compiled once. Same values, same runtime
-    # (gathers are per-element-overhead bound either way).
+    # Per-view lax.scan for the mask lookups: the scan body holds ONE
+    # [N]-element gather, compiled once.
     def view_hits(hits, args):
         mask_v, flat_v, good_v = args                # [H*W], [N], [N]
         return hits + (mask_v[flat_v] & good_v).astype(jnp.float32), None
@@ -171,7 +165,11 @@ def wayward_mask(state: GaussianState, config: ModelConfig) -> jnp.ndarray:
         d = state.params.means[:, None, :] - state.params.means[idx]
         d = d / jnp.maximum(jnp.linalg.norm(d, axis=-1, keepdims=True), 1e-12)
         d = d - jnp.mean(d, axis=1, keepdims=True)
-        cov = jnp.einsum("nki,nkj->nij", d, d) / k
+        # HIGHEST: a default-precision f32 contraction may run in TF32 on
+        # the GPU, and the 3rd/2nd singular-value ratio of a thin cluster
+        # is far below TF32's ~1e-3 resolution
+        cov = jnp.einsum("nki,nkj->nij", d, d,
+                         precision=jax.lax.Precision.HIGHEST) / k
         evals = jnp.linalg.eigvalsh(cov)              # ascending
         s = jnp.sqrt(jnp.maximum(evals, 0.0))
         cns = s[:, 0] / jnp.maximum(s[:, 1], 1e-12)   # 3rd/2nd singular value
@@ -217,7 +215,7 @@ def duplicate_high_pos_gradients(state: GaussianState, moments: AdamMoments,
                                  (num_q - 1) / num_q, method="lower")
         dup_mask = (grads_n > thresh) & state.alive
     elif config.dup_threshold_type == "top_fraction":
-        # TPU-native addition: duplicate the top `dup_threshold_value`
+        # this framework's addition: duplicate the top `dup_threshold_value`
         # fraction of alive Gaussians by absgrad. Count-deterministic,
         # unlike 'absolute', whose cutoff on min-max-normalized grads
         # sits on a knife edge where toolchain-level numeric shifts move
@@ -269,10 +267,9 @@ def _duplicate(state: GaussianState, moments: AdamMoments,
     written = jnp.zeros((cap,), dtype=bool)
 
     src_ids = jnp.arange(cap, dtype=jnp.int32)
-    # ONE RNG draw for all copies: each threefry `normal` instance compiles
-    # to ~1 MB of TPU code, so per-copy draws inside this unrolled loop
-    # multiplied program size (and remote-compile/upload time) by
-    # dup_factor. A leading-axis slice per copy is layout-free.
+    # ONE RNG draw for all copies: per-copy draws inside this unrolled loop
+    # would multiply the compiled RNG code by dup_factor. A leading-axis
+    # slice per copy is layout-free.
     noise_all = noise_scale * jax.random.normal(key, (n_copies, cap, 3))
     for r in range(n_copies):
         free_rank = r * n_sel + sel_rank

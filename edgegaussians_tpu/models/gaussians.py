@@ -1,6 +1,6 @@
 """Functional Gaussian model state (fixed-capacity, masked).
 
-The TPU-native counterpart of the reference's mutable
+The functional counterpart of the reference's mutable
 ``torch.nn.ParameterDict`` model (edge_gs.py:61-133). Parameters live in
 fixed-capacity ``[N_max, ...]`` arrays with an ``alive`` mask so every
 jitted computation — rendering, losses, adaptive density control — keeps

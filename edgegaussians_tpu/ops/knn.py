@@ -3,8 +3,8 @@
 Replaces the reference's sklearn NearestNeighbors round trip
 (edge_gs.py:135-151: GPU -> CPU -> sklearn kd-tree -> GPU, every 5 training
 steps — SURVEY.md flags it as the known sore point). At the N ~ 1e4-1e5 scale
-of this workload an O(N^2) masked distance sweep is a few Gflop — microseconds
-of MXU time — and stays on-device inside the jitted train step.
+of this workload an O(N^2) masked distance sweep is a few Gflop and stays
+on-device inside the jitted train step.
 
 Distances are computed chunked via the |x|^2 + |y|^2 - 2 x.y expansion so the
 pairwise term is a single [chunk,3] @ [3,N] matmul.
@@ -17,13 +17,18 @@ import functools
 import jax
 import jax.numpy as jnp
 
+# approx_max_k recall target of the direction-loss neighbours: 0.95 was
+# quality-neutral against 0.99 over three production training seeds
+# (docs/RESULTS.md). On the GPU and the CPU approx_max_k lowers to an exact
+# top-k, so there the value changes nothing.
+APPROX_RECALL = 0.95
+
 
 def knn(points: jnp.ndarray,            # [N,3]
         k: int,
         mask: jnp.ndarray | None = None,  # [N] bool; False rows excluded
         chunk: int = 1024,
-        approx: bool = False,
-        backend: str = "auto"):
+        approx: bool = False):
     """k nearest neighbors of every point among the masked points.
 
     Returns (distances [N,k], indices [N,k]), self excluded — matching the
@@ -32,46 +37,12 @@ def knn(points: jnp.ndarray,            # [N,3]
     use). NaN coordinates are treated as 0, mirroring the reference's NaN
     guard (edge_gs.py:330-333).
 
-    ``approx=True`` uses the TPU-native ``jax.lax.approx_max_k``
-    (recall target 0.99) — appropriate for the direction-loss neighbors
-    where exactness is immaterial; exact top-k (the default) matches sklearn
+    ``approx=True`` uses ``jax.lax.approx_max_k`` (recall target
+    APPROX_RECALL) — appropriate for the direction-loss neighbors where
+    exactness is immaterial; exact top-k (the default) matches sklearn
     and is used everywhere correctness-sensitive.
-
-    ``backend='pallas'`` (k <= 8) selects the Pallas streaming kernel
-    (ops/pallas_knn.py) — exact selection with zero HBM spill. Measured
-    in-program (epoch-level A/B on v5e, scripts/epoch_ab.py) it is
-    SLOWER than this XLA path (every-5-renders block 7.7 ms vs 4.3 ms at
-    16384 capacity): inside the compiled epoch the XLA d2+top-k fusions
-    overlap well, while the kernel's serial key-block walk with k
-    min-reduce passes per block underutilizes the VPU. 'auto' therefore
-    stays on the XLA path; the kernel remains as an explicitly
-    selectable backend (parity-tested in tests/test_pallas_knn.py) and a
-    recorded negative result (docs/RESULTS.md round 3).
     """
-    # env resolution happens OUTSIDE the jitted implementation: the jit
-    # cache below is keyed on the resolved backend string, so changing
-    # EG_KNN_BACKEND between calls selects the right program instead of
-    # being silently ignored by an already-traced 'auto' entry.
-    import os
-    if backend == "auto":
-        backend = os.environ.get("EG_KNN_BACKEND") or "xla"
-    if backend == "pallas":
-        from edgegaussians_tpu.ops.pallas_knn import knn_pallas
-        return knn_pallas(points, k, mask=mask)
-    # approx_max_k cost is dominated by the exact sort of its candidate
-    # set, whose size scales with recall_target: 0.99 lowers to a
-    # [chunk, 512] sort at N=16384, measured ~3.8 ms of the ~5 ms
-    # every-5-renders block (round-5 epoch trace). The 0.95 default
-    # cuts the block to 4.29 ms (controlled same-seed in-program A/B,
-    # scripts/epoch_ab.py) and is quality-neutral over 3 production
-    # training seeds: chamfer 0.01053 +- 0.0003 / F@10 0.976 +- 0.006
-    # vs the 0.99 distribution 0.0106 +- 0.0003 / 0.974 +- 0.005
-    # (docs/RESULTS.md round 5). 0.85 measured no faster (candidate-set
-    # floor). EG_KNN_RECALL restores any value; on CPU approx_max_k
-    # falls back to exact top-k, so CPU trajectory tests see no
-    # difference.
-    recall = float(os.environ.get("EG_KNN_RECALL", "0.95"))
-    return _knn_xla(points, k, mask, chunk, approx, recall)
+    return _knn_xla(points, k, mask, chunk, approx, APPROX_RECALL)
 
 
 @functools.partial(jax.jit,

@@ -40,8 +40,8 @@ TRANSMITTANCE_EPS = 1e-4
 # Slack on the sigma >= 0 skip rule in the tile path. The tile compositors
 # reconstruct sigma as (log opacity - log alpha), the difference of two
 # nearly-equal dot products; at a Gaussian's center pixel the true value is
-# exactly 0 and f32 accumulation-order noise (~1e-5, and MXU vs VPU orders
-# differ) would otherwise flip the comparison — toggling that pixel's alpha
+# exactly 0 and f32 accumulation-order noise (~1e-5; matmul and
+# elementwise evaluation orders differ) would otherwise flip the comparison — toggling that pixel's alpha
 # between 0 and full opacity between backends. The slack is far above the
 # matmul noise and far below any visible alpha change (< 0.1%); the
 # per-pixel oracle (rasterize_ref.py) computes sigma from the quadratic
@@ -93,11 +93,10 @@ def project_gaussians(
     my = fy * y / zs + cy
     means2d = jnp.stack([mx, my], axis=-1)
 
-    # world covariance -> camera covariance, in scalar components: any
-    # [N,3,3] tensor here would cost rank-3 relayout code (~3 MB of the
-    # program) AND runtime copies on every render. R_cw entries are
-    # scalars, so Sigma_c = R Sigma R^T is 2 static 3x3 expansions of
-    # pure [N]-vector VPU math — exact f32, no MXU involvement.
+    # world covariance -> camera covariance, in scalar components: R_cw
+    # entries are scalars, so Sigma_c = R Sigma R^T is 2 static 3x3
+    # expansions of [N]-vector elementwise math — exact f32, no
+    # reduced-precision matmul and no [N,3,3] relayouts.
     w00, w01, w02, w11, w12, w22 = covariance6_from_quat_scale(
         quats, scales.astype(f32))
     sigma_w = [[w00, w01, w02], [w01, w11, w12], [w02, w12, w22]]

@@ -1,6 +1,6 @@
 """Differentiable tile-based Gaussian rasterization (the L0 replacement).
 
-TPU-native re-design of the external gsplat CUDA rasterizer the reference
+JAX re-design of the external gsplat CUDA rasterizer the reference
 depends on (call site: edgegaussians/models/edge_gs.py:250-268). One call
 renders one camera's edge-intensity image and backpropagates to means /
 quats / scales / opacities, with the gsplat 'antialiased' opacity
@@ -9,11 +9,22 @@ compensation and absgrad signal.
 Pipeline (all static shapes, jit-safe):
 
     project (JAX, autodiff)  ->  bin (sort + prefix sums, stop-grad)
-    -> gather per-tile data  ->  composite (custom VJP; Pallas or XLA)
+    -> gather per-tile data  ->  composite (custom VJP; GPU kernel or XLA)
     -> assemble [H, W]
 
 Colors are implicitly all-ones (edge_gs.py:247): the rendered intensity is
 the accumulated alpha, so 'rgb' and 'accumulation' outputs coincide.
+
+Render backends (``resolve_backend``):
+
+- ``gpu``: the segmented pair compositor (``pair_kernel="seg"``) runs as
+  compiled Pallas/Triton kernels (ops/segpair.py); needs a GPU,
+- ``interpret``: the same kernels on the Pallas interpreter — for tests
+  and CPU rehearsals, and only when asked for by name,
+- ``jax``: plain XLA for every path. A ``seg`` configuration renders
+  through the single-level XLA oracle (``composite.tile_render``), which
+  composites the same min(count, capacity) Gaussians per tile; only a
+  pair-budget overflow (which the trainer audits) would differ.
 """
 
 from __future__ import annotations
@@ -23,11 +34,34 @@ from typing import NamedTuple, Optional
 import jax
 import jax.numpy as jnp
 
-from edgegaussians_tpu.ops import tiles as tiles_mod
+from edgegaussians_tpu.ops import segpair, tiles as tiles_mod, vma
 from edgegaussians_tpu.ops.composite import (tile_render, tile_render_two_level)
 from edgegaussians_tpu.ops.projection import project_gaussians
 from edgegaussians_tpu.ops.tiles import (
     assemble_image, bin_gaussians, pixel_basis, tile_origins)
+
+
+BACKENDS = ("gpu", "interpret", "jax")
+
+
+def resolve_backend(requested: str = "auto") -> str:
+    """The render backend to use for ``requested``.
+
+    ``'auto'`` is ``'gpu'`` when JAX's default platform is a GPU and
+    ``'jax'`` otherwise; it never chooses ``'interpret'``. Asking for
+    ``'gpu'`` without a GPU raises. Callers log the returned choice.
+    """
+    platform = jax.default_backend()
+    if requested == "auto":
+        return "gpu" if platform == "gpu" else "jax"
+    if requested not in BACKENDS:
+        raise ValueError(f"unknown render backend {requested!r}; expected "
+                         f"'auto' or one of {BACKENDS}")
+    if requested == "gpu" and platform != "gpu":
+        raise RuntimeError(
+            f"render backend 'gpu' needs a GPU, but JAX's default platform "
+            f"is {platform!r}")
+    return requested
 
 
 class RenderResult(NamedTuple):
@@ -60,8 +94,8 @@ def rasterize(
     overflow_tiles: int = 0,     # 0 = auto (T//4); budget of level-2 tiles
     pair_budget: int = 0,        # 0 = off; else sorted-pair-prefix frame
                                  # build + backward reduction (two-level
-                                 # only; see KERNELS.md §5.2)
-    backend: str = "jax",
+                                 # and "seg" paths)
+    backend: str = "jax",        # resolved: one of BACKENDS
     occupancy_sort: bool = False,
     antialiased: bool = True,
     near_plane: float = 0.01,
@@ -70,8 +104,9 @@ def rasterize(
     absgrad_sink: Optional[jnp.ndarray] = None,   # [N,2] zeros
     band_row0: Optional[jnp.ndarray] = None,  # traced int32: first tile row
     band_tile_rows: Optional[int] = None,     # static: tile rows in band
-    pair_kernel: bool = False,   # pair-domain DMA compositor
-                                 # (ops/pallas_pair.py); needs pair_budget
+    pair_kernel=False,           # False | "seg": segmented pair
+                                 # compositor (ops/segpair.py); needs
+                                 # pair_budget
 ) -> RenderResult:
     """Render one view. Differentiable in means/quats/scales/opacities and,
     through ``absgrad_sink``'s cotangent, reports accumulated |d means2d|.
@@ -120,7 +155,7 @@ def rasterize_packed(
     absgrad_sink: Optional[jnp.ndarray] = None,
     band_row0: Optional[jnp.ndarray] = None,
     band_tile_rows: Optional[int] = None,
-    pair_kernel: bool = False,
+    pair_kernel=False,
 ) -> RenderResult:
     """Bin + composite pre-projected, pre-packed Gaussians.
 
@@ -149,32 +184,28 @@ def rasterize_packed(
     # varying (ops.vma.match_vma) by the caller BEFORE the function being
     # differentiated — a pvary inside the grad would transpose to a psum
     # and silently change absgrad semantics. See parallel/train_dp.py.
+    # The render data then varies wherever the sink does, so the image
+    # cotangent (and with it absgrad) stays per-device; for replicated
+    # parameters this pvary transposes into the psum their gradient needs.
+    packed = vma.match_vma(packed, absgrad_sink)
     num_tiles = tiles_mod.tile_grid(width, height, tile_size)[2]
     capacity = min(capacity, n) if n > 0 else capacity
 
     num_pairs = None
-    if pair_kernel and pair_budget > 0:
-        # pair-domain DMA compositors: no dense frame materialization,
-        # single-level per-tile capacity (every tile composites
-        # min(count, capacity) — strictly more complete than the
-        # two-level truncation). pair_kernel=True selects the v4
-        # block-window kernel (ops/pallas_pair.py); pair_kernel="seg"
-        # the v5 pair-dense segmented kernel (ops/pallas_segpair.py —
-        # kernel cost proportional to real pairs, no brick pads).
-        variant = pair_kernel if isinstance(pair_kernel, str) else "block"
-        from edgegaussians_tpu.ops import pallas_pair, pallas_segpair
+    if pair_kernel and pair_kernel != "seg":
+        raise ValueError(f"pair_kernel={pair_kernel!r}: only 'seg' exists")
+    if pair_kernel and pair_budget > 0 and backend != "jax":
+        # segmented pair compositor: no dense frame, single-level per-tile
+        # capacity (every tile composites min(count, capacity) — strictly
+        # more complete than the two-level truncation)
         pbins = tiles_mod.bin_pairs_frame_order(
             jax.lax.stop_gradient(proj), width, height, tile_size,
             capacity, pair_budget,
-            max_tiles_per_gaussian=max_tiles_per_gaussian,
-            block_tiles=(0 if variant == "seg"
-                         else pallas_pair.pair_block_tiles()))
+            max_tiles_per_gaussian=max_tiles_per_gaussian)
         packed_sorted = packed[pbins.order]
-        render_fn = (pallas_segpair.segpair_render if variant == "seg"
-                     else pallas_pair.pair_render)
-        img_f = render_fn(
-            packed_sorted, pbins, origins, basis, absgrad_sink, capacity,
-            None if backend == "pallas" else True)
+        img_f = segpair.segpair_render(
+            packed_sorted, pbins, origins, basis, absgrad_sink,
+            backend == "interpret")
         # frame order -> tile order (autodiff transposes to a gather)
         tile_imgs = jnp.zeros_like(img_f).at[pbins.perm].set(
             img_f, unique_indices=True)
@@ -184,7 +215,7 @@ def rasterize_packed(
             num_visible=jnp.sum(proj.valid.astype(jnp.int32)),
             num_truncated=pbins.num_truncated,
             num_pairs=pbins.num_pairs)
-    if 0 < dense_capacity < capacity:
+    if 0 < dense_capacity < capacity and not pair_kernel:
         # two-level: dense K1 everywhere + overflow budget of busy tiles
         t2 = overflow_tiles or max(num_tiles // 4, 8)
         t2 = min(t2, num_tiles)
@@ -198,7 +229,7 @@ def rasterize_packed(
                      if bins2.tile_perm is not None else origins)
         tile_imgs = tile_render_two_level(
             packed_sorted, bins2, origins_f, basis,
-            bins2.order, absgrad_sink, backend, k1, k2)
+            bins2.order, absgrad_sink, k1, k2)
         if bins2.tile_perm is not None:
             # frame rows -> tile order (scatter by the forward permutation;
             # autodiff transposes this into the matching gather)
@@ -212,12 +243,10 @@ def rasterize_packed(
                              tile_size, capacity,
                              max_tiles_per_gaussian=max_tiles_per_gaussian)
         packed_sorted = packed[bins.order]
-        counts = jnp.minimum(bins.counts, bins.ranks.shape[1])
         gathered = packed_sorted[bins.ranks]              # [T,Kc,8] row gather
         slot_validf = bins.valid.astype(jnp.float32)
         tile_imgs = tile_render(gathered, slot_validf, origins,
-                                basis, bins.ranks, bins.order, absgrad_sink,
-                                counts, backend)
+                                basis, bins.ranks, bins.order, absgrad_sink)
         tile_counts = bins.counts
         num_truncated = bins.num_truncated
     image = assemble_image(tile_imgs, width, height, tile_size)

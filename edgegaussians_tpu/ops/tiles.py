@@ -2,10 +2,10 @@
 
 The production rasterizer decomposes the image into ``ts x ts`` pixel tiles
 (reference BLOCK_WIDTH=16 — edge_gs.py:233,260) and, per tile, composites a
-fixed-capacity, depth-ordered list of intersecting Gaussians. On TPU the
+fixed-capacity, depth-ordered list of intersecting Gaussians. The
 variable-length per-tile lists of the CUDA design become static-shape
-``[T, K]`` index arrays built with sort + prefix-sum + batched binary search —
-no scatters, no dynamic shapes, fully jit-safe.
+tables built with one fused-key sort + prefix sums — no dynamic shapes,
+fully jit-safe.
 
 The pixel-evaluation is phrased as a matmul: for conic (a,b,c), center
 (mx,my) in TILE-LOCAL pixel coordinates and log-opacity lo,
@@ -15,9 +15,9 @@ The pixel-evaluation is phrased as a matmul: for conic (a,b,c), center
 with G = [-a/2, -b, -c/2, a*mx+b*my, b*mx+c*my,
           -(a*mx^2 + 2b*mx*my + c*my^2)/2 + lo, 0, 0].
 
-This maps the hot per-(Gaussian, pixel) evaluation onto the MXU as a
-``[K,8] @ [8,P]`` product, and tile-local coordinates keep the quadratic
-terms small so f32 loses no precision to cancellation.
+so the hot per-(Gaussian, pixel) evaluation is a ``[K,8] @ [8,P]`` product
+(or 5 FMAs per pixel in the GPU kernel), and tile-local coordinates keep the
+quadratic terms small so f32 loses no precision to cancellation.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ import jax.numpy as jnp
 
 from edgegaussians_tpu.ops.projection import ProjectedGaussians
 
-NUM_FEATURES = 8   # 6 used + 2 pad to an MXU-friendly lane count
+NUM_FEATURES = 8   # 6 used + the log opacity (sigma guard) + 1 pad
 
 
 def cdiv(a: int, b: int) -> int:
@@ -42,9 +42,8 @@ class TileBins(NamedTuple):
 
     Per-tile entries are *depth ranks* — positions in the global
     depth-ascending order — not raw Gaussian ids: consumers gather from
-    rank-permuted arrays (``packed[order]``) because a [T,K] row gather is
-    ~10x cheaper on TPU than the 1-D ``order[ranks]`` id decode, and the
-    rank->id unpermute is a cheap [N]-sized op where needed.
+    rank-permuted arrays (``packed[order]``), and the rank->id unpermute is
+    a cheap [N]-sized op where needed.
     """
     ranks: jnp.ndarray     # [T,K] int32 depth ranks (clipped)
     valid: jnp.ndarray     # [T,K] bool
@@ -60,8 +59,8 @@ class TileBinsTwoLevel(NamedTuple):
     budget of ``t2`` busiest tiles carrying k2 more slots each.
 
     Decoding only T*k1 + t2*k2 entries (instead of T*(k1+k2)) keeps the
-    rank-decode gather — the single most expensive binning op on TPU —
-    proportional to the work the compositor actually does.
+    rank-decode gather proportional to the work the compositor actually
+    does.
 
     With a ``pair_budget`` B > 0 the decode is skipped entirely
     (``ranks1``/``ranks2`` are None) and the renderer works in the
@@ -115,8 +114,7 @@ def bin_gaussians(proj: ProjectedGaussians, width: int, height: int,
 
     Matches the CUDA rasterizer's binning rule (square 3-sigma bounding box
     against the tile rectangle; tiles in [floor((m-r)/ts), ceil((m+r)/ts))),
-    re-designed for TPU as ONE fused-key sort — no scatters, no per-tile
-    loops:
+    as ONE fused-key sort — no scatters, no per-tile loops:
 
     1. expand each depth-sorted Gaussian into <= M (tile, rank) pairs,
        encoded in a single int32 key ``tile_id << RANK_BITS | depth_rank``
@@ -166,12 +164,9 @@ def bin_gaussians_two_level(proj: ProjectedGaussians, width: int,
     render like tiles past the overflow budget.
 
     ``occupancy_sort`` orders the FRAME rows by descending per-tile count
-    (``tile_perm``). The compositor kernels predicate per TILE_BLOCK on the
-    block's max occupancy, so occupancy-homogeneous blocks cut the
-    predicated slot work ~2x on real edge scenes (measured on the ABC
-    fixture: 1.27M -> 0.60M chunk-rounded slots); the overflow list
-    becomes the first t2 frame rows, making the level-2 transmittance
-    hand-off a contiguous slice instead of a gather.
+    (``tile_perm``): the overflow list becomes the first t2 frame rows,
+    making the level-2 transmittance hand-off a contiguous slice instead
+    of a gather.
     """
     n = proj.depths.shape[0]
     T = tile_grid(width, height, tile_size)[2]
@@ -242,9 +237,8 @@ def _pair_prefix_tables(sorted_keys, starts, counts, ovf_ids,
 
     The offset is therefore a step function of p whose breakpoints are the
     <= 3 segment starts of each tile — built with [T]-sized delta scatters
-    and ONE cumsum over [budget], with no per-pair gathers (a per-pair
-    [T]-table gather is what made the earlier pair-domain backward lose to
-    the plain frame scatter — KERNELS.md §5.1). Deltas telescope, so
+    and ONE cumsum over [budget], with no per-pair gathers. Deltas
+    telescope, so
     coincident breakpoints (empty tiles) and non-monotonic offsets are both
     handled by plain scatter-add.
     """
@@ -300,34 +294,21 @@ def _pair_prefix_tables(sorted_keys, starts, counts, ovf_ids,
 
 
 class PairBins(NamedTuple):
-    """Frame-ordered pair tables for the DMA pair compositor
-    (ops/pallas_pair.py).
+    """Frame-ordered pair tables for the segmented pair compositor
+    (ops/segpair.py).
 
-    The budget-B prefix of the fused-key sort is RE-SORTED by
-    ``frame_row << RANK_BITS | depth_rank`` where frame rows order tiles
-    by descending occupancy — so (a) every tile's composited pairs are a
-    contiguous run of the pair array in depth order, (b) runs of a block
-    of TB consecutive frame rows are contiguous, letting the kernel DMA
-    ONE static window per block instead of scattering a dense [T*K] frame
-    (the ~2 ms top op of the round-3 trace — docs/KERNELS.md §5.1), and
-    (c) blocks are occupancy-homogeneous for chunk predication.
-
-    When ``block_tiles`` > 0, per-block PADDING pairs are inserted into
-    the re-sort (sorting at the end of each block's last run) so every
-    TB-tile block starts at a 128-pair brick boundary: the kernel's
-    [NB, 8, 128] brick windows then partition cleanly across blocks and
-    the backward's window write-backs never share a brick. Pad pairs
-    carry ranks >= RANK_MASK - 127 (asserted > any real rank) and are
-    excluded from ``counts_f``/``pair_valid``.
+    The budget-B prefix of the fused-key sort is laid out again by frame
+    row, where frame rows order tiles by descending kept run length, so
+    every tile's composited pairs are one contiguous depth-ordered run of
+    the pair stream and zero-length runs come last.
 
     Single-level semantics: every tile composites min(count, cap) pairs —
     strictly more complete than the two-level k1/t2/k2 truncation.
     """
-    pair_ranks: jnp.ndarray   # [Bp] int32 depth rank of resorted pair p
-    pair_valid: jnp.ndarray   # [Bp] bool (real pair, in budget, slot<cap)
+    pair_ranks: jnp.ndarray   # [B] int32 depth rank of resorted pair p
+    pair_valid: jnp.ndarray   # [B] bool (real pair, in budget, slot<cap)
     s_f: jnp.ndarray          # [T+1] int32 run start of frame row fr
     counts_f: jnp.ndarray     # [T] int32 composited pairs in FRAME order
-                              # (run length minus block pads)
     perm: jnp.ndarray         # [T] int32 frame row -> original tile id
     order: jnp.ndarray        # [N] int32 rank -> gaussian id
     counts: jnp.ndarray       # [T] int32 true occupancy (tile order)
@@ -341,8 +322,7 @@ def step_over_pairs(pos: jnp.ndarray, vals: jnp.ndarray, budget: int,
     [pos[i], pos[i+1]); 0 before pos[0] and after pos[len(vals)].
 
     Built with one [T]-sized delta scatter + one cumsum — no per-pair
-    gathers (the lesson of the pair-domain backward experiment,
-    KERNELS.md §5.1). Coincident positions telescope.
+    gathers. Coincident positions telescope.
     """
     vals = vals.astype(dtype)
     prev = jnp.concatenate([jnp.zeros((1,), dtype), vals])
@@ -354,27 +334,23 @@ def step_over_pairs(pos: jnp.ndarray, vals: jnp.ndarray, budget: int,
 
 @functools.partial(jax.jit, static_argnames=(
     "width", "height", "tile_size", "cap", "budget",
-    "max_tiles_per_gaussian", "block_tiles"))
+    "max_tiles_per_gaussian"))
 def bin_pairs_frame_order(proj: ProjectedGaussians, width: int,
                           height: int, tile_size: int, cap: int,
                           budget: int,
-                          max_tiles_per_gaussian: int = MAX_TILES_PER_GAUSSIAN,
-                          block_tiles: int = 0) -> PairBins:
+                          max_tiles_per_gaussian: int = MAX_TILES_PER_GAUSSIAN
+                          ) -> PairBins:
     """Bin into frame-ordered pair runs (see :class:`PairBins`).
 
-    With ``block_tiles == 0`` (the v5 segmented kernel's tables) the
-    resorted stream is computed SORT-FREE from the fused-key sort's
-    outputs: per-tile kept counts + cumsum give the run starts, a step
-    function over the resorted index maps each position back to its
-    sort-1 position, and one [budget] row-gather decodes the ranks —
-    no re-key sort, no second searchsorted (each ~0.3-0.6 ms/render at
-    ABC shapes in the round-4 traces).
-
-    With ``block_tiles`` > 0 (the v4 block-window kernel) the original
-    two-sort path runs: a [budget+pads] re-key sort into occupancy-frame
-    order with per-block brick-alignment pads (class docstring). All
-    per-pair quantities are built as step functions over the pair index
-    with [T]-sized delta scatters + one cumsum — zero per-pair gathers.
+    The resorted stream is computed from the fused-key sort's outputs
+    without a second sort: per-tile kept counts + cumsum give the run
+    starts, a step function over the resorted index maps each position
+    back to its sort-1 position, and one [budget] row-gather decodes the
+    ranks. A pair at resorted position q in frame row fr sits at sort-1
+    position s[perm[fr]] + (q - s_f[fr]). Per-tile kept counts replicate
+    the prefix-budget semantics exactly: position p of tile t survives iff
+    p < budget (prefix slice), p - s_t < cap (slot filter) and
+    p - s_t < counts_t (real pair).
     """
     T = tile_grid(width, height, tile_size)[2]
     n = proj.depths.shape[0]
@@ -382,109 +358,25 @@ def bin_pairs_frame_order(proj: ProjectedGaussians, width: int,
         proj, width, height, tile_size, max_tiles_per_gaussian)
     total = starts[-1].astype(jnp.int32)
 
-    if block_tiles == 0:
-        # Sort-free fast path (the v5 segmented kernel's tables): the
-        # resorted stream is fully determined by sort-1's outputs, so the
-        # re-key sort AND its searchsorted (together ~0.6 ms/render at ABC
-        # shapes — the round-4 trace's 2nd/3rd binning ops) collapse into
-        # [T]-sized arithmetic plus one [B] row-gather decode. A pair at
-        # resorted position q in frame row fr sits at sort-1 position
-        # s[perm[fr]] + (q - s_f[fr]) — a step function of q. Per-tile
-        # kept counts replicate the prefix-budget semantics exactly:
-        # position p of tile t survives iff p < budget (prefix slice),
-        # p - s_t < cap (slot filter), p - s_t < counts_t (real pair).
-        s = starts[:-1].astype(jnp.int32)
-        kept = jnp.minimum(jnp.minimum(counts, cap),
-                           jnp.clip(budget - s, 0, None))
-        # Frame rows ordered by descending KEPT run length — NOT raw
-        # occupancy: under budget overflow a high-count tile whose sort-1
-        # run starts at s >= budget keeps zero pairs, and a raw-count
-        # ordering would leave that zero-kept row mid-stream. The seg
-        # kernel requires all zero-length runs LAST (garbage pairs park at
-        # the first empty frame row and consecutive-brick row jumps must
-        # stay <= BRICK — pallas_segpair._prep); violating it scrambled
-        # the step-window offsets and NaN'd the render (ADVICE r4 high).
-        _, perm = jax.lax.sort_key_val(-kept,
-                                       jnp.arange(T, dtype=jnp.int32))
-        kept_f = kept[perm]
-        s_f = jnp.concatenate([jnp.zeros((1,), jnp.int32),
-                               jnp.cumsum(kept_f)])
-        qq = jnp.arange(budget, dtype=jnp.int32)
-        in_pos = qq + step_over_pairs(s_f, s[perm] - s_f[:-1], budget,
-                                      jnp.int32)
-        ranks_out = _decode_ranks(sorted_keys, in_pos[None, :], n)[0]
-        pair_valid = qq < s_f[-1]
-        return PairBins(
-            pair_ranks=ranks_out, pair_valid=pair_valid,
-            s_f=s_f, counts_f=kept_f, perm=perm, order=order,
-            counts=counts, num_pairs=total, num_truncated=num_trunc)
-
-    # v4 block-window path: occupancy-descending frame order
-    _, perm = jax.lax.sort_key_val(-counts, jnp.arange(T, dtype=jnp.int32))
-    inv_perm = jnp.zeros((T,), jnp.int32).at[perm].set(
-        jnp.arange(T, dtype=jnp.int32), unique_indices=True)
-
-    keys = sorted_keys
-    if keys.shape[0] < budget:
-        keys = jnp.pad(keys, (0, budget - keys.shape[0]),
-                       constant_values=2 ** 31 - 1)
-    pk = jax.lax.slice_in_dim(keys, 0, budget)
-    pp = jnp.arange(budget, dtype=jnp.int32)
-    bounds = starts.astype(jnp.int32)                 # [T+1]
-    s = bounds[:-1]
-    # per-pair frame row and slot index as step functions of p
-    fr_of_p = step_over_pairs(bounds, inv_perm, budget, jnp.int32)
-    slot_of_p = pp + step_over_pairs(bounds, -s, budget, jnp.int32)
-    valid = (pp < total) & (slot_of_p < cap)
-    rank = pk & RANK_MASK
-    new_key = jnp.where(valid, (fr_of_p << RANK_BITS) | rank,
-                        jnp.int32(2 ** 31 - 1))
-
-    pads_f = None
-    if block_tiles > 0:
-        # per-block brick alignment: block b's run length is known BEFORE
-        # the re-sort (sum of clipped counts over its tiles), so its pad
-        # count is static data — pads get keys that sort at the END of
-        # the block's last frame row, with ranks above every real rank
-        if n > RANK_MASK - 127:
-            raise ValueError(
-                f"{n} Gaussians leave no rank headroom for brick pads")
-        Tp = cdiv(T, block_tiles) * block_tiles
-        counts_fc_all = jnp.pad(jnp.minimum(counts[perm], cap),
-                                (0, Tp - T))
-        per_block = counts_fc_all.reshape(-1, block_tiles).sum(axis=1)
-        # budget drops shorten runs; clamp so pads never push a block
-        # past its static window
-        pads_b = (-per_block) % 128                   # [G]
-        G = per_block.shape[0]
-        last_fr = (jnp.arange(G, dtype=jnp.int32) * block_tiles
-                   + block_tiles - 1)
-        jj = jnp.arange(127, dtype=jnp.int32)[None, :]
-        pad_keys = jnp.where(
-            jj < pads_b[:, None],
-            (jnp.minimum(last_fr, T - 1)[:, None] << RANK_BITS)
-            | (RANK_MASK - jj),
-            jnp.int32(2 ** 31 - 1)).reshape(-1)
-        new_key = jnp.concatenate([new_key, pad_keys])
-        # per-frame-row pad counts (non-zero only on block-last rows)
-        pads_f = jnp.zeros((Tp,), jnp.int32).at[
-            jnp.minimum(last_fr, T - 1)].add(pads_b)[:T]
-
-    rk = jax.lax.sort(new_key)
-
-    s_f = _tile_run_starts(rk, T)      # frame-row prefixes, same key form
-    # ACTUAL composited run lengths (exact even when pairs past the
-    # budget were dropped): searchsorted diffs minus the block pads —
-    # this is what masks garbage rows in the kernel walk
-    counts_f = s_f[1:] - s_f[:-1]
-    if pads_f is not None:
-        counts_f = counts_f - pads_f
-    ranks_out = jnp.clip(rk & RANK_MASK, 0, max(n - 1, 0))
-    pair_valid = (rk != jnp.int32(2 ** 31 - 1)) & \
-        ((rk & RANK_MASK) < jnp.int32(max(n, 1)))
+    s = starts[:-1].astype(jnp.int32)
+    kept = jnp.minimum(jnp.minimum(counts, cap),
+                       jnp.clip(budget - s, 0, None))
+    # Frame rows ordered by descending KEPT run length — not raw
+    # occupancy: under budget overflow a high-count tile whose sort-1 run
+    # starts at s >= budget keeps zero pairs, and must sort with the other
+    # empty rows at the end.
+    _, perm = jax.lax.sort_key_val(-kept, jnp.arange(T, dtype=jnp.int32))
+    kept_f = kept[perm]
+    s_f = jnp.concatenate([jnp.zeros((1,), jnp.int32),
+                           jnp.cumsum(kept_f)])
+    qq = jnp.arange(budget, dtype=jnp.int32)
+    in_pos = qq + step_over_pairs(s_f, s[perm] - s_f[:-1], budget,
+                                  jnp.int32)
+    ranks_out = _decode_ranks(sorted_keys, in_pos[None, :], n)[0]
+    pair_valid = qq < s_f[-1]
     return PairBins(
         pair_ranks=ranks_out, pair_valid=pair_valid,
-        s_f=s_f, counts_f=counts_f, perm=perm, order=order,
+        s_f=s_f, counts_f=kept_f, perm=perm, order=order,
         counts=counts, num_pairs=total, num_truncated=num_trunc)
 
 
@@ -492,11 +384,9 @@ def _tile_run_starts(sorted_keys: jnp.ndarray, num_tiles: int
                      ) -> jnp.ndarray:
     """[T+1] run starts of tile-prefix boundaries in a fused-key sort.
 
-    Replaces ``jnp.searchsorted(sorted_keys, boundaries)`` — XLA lowers
-    that as a log2(len)-deep bisection while whose per-iteration [T+1]
-    scalar gathers were the single most expensive binning op in the
-    round-4 traces (0.62 ms at ABC shapes, ~2 ms at DTU). Because our
-    boundaries are exactly the dense tile prefixes ``t << RANK_BITS``,
+    Replaces ``jnp.searchsorted(sorted_keys, boundaries)``, which XLA
+    lowers as a log2(len)-deep bisection loop of [T+1] scalar gathers.
+    Because our boundaries are exactly the dense tile prefixes ``t << RANK_BITS``,
     the search collapses to exact arithmetic:
 
     1. downsample every ``stride``-th key; a [T]-histogram + cumsum of
@@ -582,8 +472,7 @@ def _sort_pairs(proj: ProjectedGaussians, width: int, height: int,
                               constant_values=2 ** 31 - 1)
 
     # per-tile run boundaries (histogram-bracketed exact search — see
-    # _tile_run_starts; the searchsorted bisection it replaces was the
-    # top binning op of the round-4 traces)
+    # _tile_run_starts)
     starts = _tile_run_starts(sorted_keys, num_tiles)             # [T+1]
     counts = (starts[1:] - starts[:-1]).astype(jnp.int32)
     num_trunc = jnp.sum((valid & (span_x * span_y > m)).astype(jnp.int32))
@@ -595,8 +484,8 @@ def _decode_ranks(sorted_keys: jnp.ndarray, gidx: jnp.ndarray,
                   n: int) -> jnp.ndarray:
     """Decode depth ranks at flat sorted-pair positions ``gidx``.
 
-    1-D gathers are ~10x slower than row gathers on TPU: fetch 8-wide rows
-    and select the lane with a one-hot dot instead of a scalar gather.
+    Fetches 8-wide rows and selects the lane with a one-hot reduction
+    instead of a scalar gather.
     """
     gidx = jnp.clip(gidx, 0, sorted_keys.shape[0] - 1)
     skeys_2d = sorted_keys.reshape(-1, 8)
@@ -633,8 +522,7 @@ def pack_gaussian_render_data(proj: ProjectedGaussians) -> jnp.ndarray:
     """Pack per-Gaussian screen data into one [N,8] row matrix.
 
     Columns: (a, b, c, mx, my, log_opacity, validf, 0). A single packed
-    array turns the per-tile gather into ONE row gather instead of four —
-    TPU gathers are overhead-bound, not bandwidth-bound.
+    array turns the per-tile gather into ONE row gather instead of four.
     """
     logop = jnp.log(jnp.maximum(proj.opacities, 1e-12))
     return jnp.stack([
@@ -670,6 +558,34 @@ def build_tile_features(gathered: jnp.ndarray,     # [T,K,8] packed rows
     zeros = jnp.zeros_like(mx)
     return jnp.stack([-0.5 * a, -b, -0.5 * c, amx_bmy, bmx_cmy, const,
                       logop_g, zeros], axis=-1)
+
+
+def build_pair_features(src8: jnp.ndarray, ox: jnp.ndarray,
+                        oy: jnp.ndarray) -> jnp.ndarray:
+    """[B,8] packed rows + per-pair tile origins -> [B,8] features.
+
+    Same G-row layout as :func:`build_tile_features` (slot 6 carries the
+    log opacity for the sigma guard), per PAIR instead of per frame slot;
+    validity is the compositor's business (pairs outside every run are
+    never composited).
+    """
+    a, b, c = src8[:, 0], src8[:, 1], src8[:, 2]
+    mx = src8[:, 3] - ox
+    my = src8[:, 4] - oy
+    lo = src8[:, 5]
+    amx_bmy = a * mx + b * my
+    bmx_cmy = b * mx + c * my
+    const = -0.5 * (amx_bmy * mx + bmx_cmy * my) + lo
+    z = jnp.zeros_like(a)
+    return jnp.stack([-0.5 * a, -b, -0.5 * c, amx_bmy, bmx_cmy, const,
+                      lo, z], axis=-1)
+
+
+def scatter_rows(idx: jnp.ndarray, rows: jnp.ndarray, n: int) -> jnp.ndarray:
+    """Accumulate ``rows`` [R,C] into ``[n,C]`` at row indices ``idx``
+    (indices >= n are dropped)."""
+    return jnp.zeros((n, rows.shape[1]), dtype=rows.dtype).at[idx].add(
+        rows, mode="drop")
 
 
 def assemble_image(tile_images: jnp.ndarray, width: int, height: int,

@@ -48,9 +48,8 @@ def major_directions(scales: jnp.ndarray, quats: jnp.ndarray) -> jnp.ndarray:
     ``scales`` are linear (already exponentiated).
 
     The column select is a one-hot blend over vector arithmetic on the
-    quaternion components — building [N,3,3] rotmats and take_along_axis
-    compiled to 2.8 MB of TPU code (rank-3 minor-dim relayouts) vs ~0.2 MB
-    for this form, with identical values and gradients.
+    quaternion components — identical values and gradients to building
+    [N,3,3] rotmats and take_along_axis, without rank-3 relayouts.
     """
     q = normalize_quats(quats)
     w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
@@ -74,8 +73,8 @@ def rotmat_elements(quats: jnp.ndarray):
     nested list of [N] arrays (row-major).
 
     Scalar-component form of :func:`quats_to_rotmats` for consumers that
-    must avoid [N,3,3] tensors: XLA:TPU compiles ops that mix a size-3
-    minor dim into ~MB-scale relayout code (see docs/RESULTS.md).
+    must avoid [N,3,3] tensors (ops that mix a size-3 minor dim compile to
+    relayout code).
     """
     q = normalize_quats(quats)
     w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
@@ -112,9 +111,9 @@ def covariance_from_quat_scale(quats: jnp.ndarray,
     """
     R = quats_to_rotmats(quats)                  # [N,3,3]
     M = R * scales[:, None, :]                   # R @ diag(s)
-    # expanded M @ M^T (Sigma_ij = sum_k M[n,i,k] M[n,j,k]): pure VPU —
-    # a batched [3,3] matmul would hit the MXU where default precision is
-    # bfloat16 and HIGHEST costs 3 passes; elementwise f32 is exact here
+    # expanded M @ M^T (Sigma_ij = sum_k M[n,i,k] M[n,j,k]) elementwise: a
+    # batched [3,3] matmul at default precision may run in TF32 or bf16;
+    # elementwise f32 is exact here
     mi = [M[:, 0, :], M[:, 1, :], M[:, 2, :]]
     sig = [[jnp.sum(mi[i] * mi[j], axis=-1) for j in range(3)]
            for i in range(3)]

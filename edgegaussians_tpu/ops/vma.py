@@ -5,9 +5,9 @@ must produce cotangents whose varying manual axes exactly match the primal
 inputs'. The rasterizer's absgrad *sink* is created as plain zeros — an
 unvarying value — but its cotangent is derived from device-varying image
 losses, so strict-vma JAX rejects the backward pass unless the sink primal
-is declared varying first (``jax.lax.pvary``). These helpers promote a
-value's vma to the join of reference values' vma; they are exact no-ops
-outside shard_map and on older JAX versions without vma-typed avals.
+is declared varying first (``jax.lax.pcast(..., to="varying")``). These
+helpers promote a value's vma to the join of reference values' vma; they
+are exact no-ops outside shard_map.
 """
 
 from __future__ import annotations
@@ -17,29 +17,8 @@ import jax
 
 def vma_of(x) -> frozenset:
     """The set of manual mesh axes ``x`` is varying over (empty outside
-    shard_map or on JAX versions without vma-typed avals)."""
-    try:
-        aval = jax.typeof(x)
-    except Exception:
-        try:
-            aval = jax.core.get_aval(x)
-        except Exception:
-            return frozenset()
-    vma = getattr(aval, "vma", None)
-    if vma is None:
-        return frozenset()
-    return frozenset(vma)
-
-
-def pvary(x, axes):
-    """Mark ``x`` varying over ``axes`` (portable across JAX versions)."""
-    axes = tuple(axes)
-    if not axes:
-        return x
-    pcast = getattr(jax.lax, "pcast", None)
-    if pcast is not None:
-        return pcast(x, axes, to="varying")
-    return jax.lax.pvary(x, axes)
+    shard_map)."""
+    return frozenset(getattr(jax.typeof(x), "vma", None) or ())
 
 
 def match_vma(x, *refs):
@@ -49,52 +28,28 @@ def match_vma(x, *refs):
     want = frozenset().union(*(vma_of(r) for r in refs)) - vma_of(x)
     if not want:
         return x
-    return pvary(x, tuple(sorted(want, key=str)))
+    return jax.lax.pcast(x, tuple(sorted(want, key=str)), to="varying")
 
 
-def shard_map_for_backend(f, *, mesh, in_specs, out_specs, backend):
-    """shard_map with vma checking ON for pure-XLA render backends.
+def shard_map(f, *, mesh, in_specs, out_specs, backend: str):
+    """``jax.shard_map`` with varying-manual-axes checking on, except for
+    the ``interpret`` render backend.
 
-    Strict vma typing is the trace-time defense against the exact bug
-    class found in round 2 (per-device partial grads psum'd as if they
-    were the true reduction — commit 26260cb). The 'jax' and 'reference'
-    backends trace to vma-clean jaxprs, so they run under
-    ``check_vma=True``; only Pallas call sites fall back to unchecked
-    (Pallas traced bodies are not vma-clean in current JAX — ref loads
-    carry the operand's vma but op results drop it, so loop carries
-    mismatch; observed on TPU with jax 0.9).
+    Strict vma typing is the trace-time defense against per-device partial
+    grads being psum'd as if they were the true reduction (or not psum'd
+    at all). The XLA compositors and the compiled Pallas pair compositor,
+    whose ``out_struct`` outputs declare their vma, trace to vma-clean
+    jaxprs. The Pallas interpreter does not: its discharge rules combine
+    the kernel's varying operands with fresh unvarying constants and grid
+    indices (``pad``/``dynamic_slice`` vma mismatches in JAX 0.9), so the
+    interpreted kernels run unchecked. Unchecked, grads w.r.t. replicated
+    inputs stay per-device partials and the callers' explicit psums are the
+    single reduction — the same numbers, pinned by tests/test_vma.py and
+    tests/test_train_sharded.py.
     """
-    if backend == "pallas":
-        return shard_map_unchecked(f, mesh=mesh, in_specs=in_specs,
-                                   out_specs=out_specs)
-    try:
-        return jax.shard_map(f, mesh=mesh, in_specs=in_specs,
-                             out_specs=out_specs, check_vma=True)
-    except TypeError:
-        from jax.experimental.shard_map import shard_map as legacy
-        return legacy(f, mesh=mesh, in_specs=in_specs,
-                      out_specs=out_specs, check_rep=True)
-
-
-def shard_map_unchecked(f, *, mesh, in_specs, out_specs):
-    """``jax.shard_map`` with varying-manual-axes checking disabled.
-
-    The production shard_maps wrap Pallas kernels whose traced bodies are
-    not vma-clean in current JAX (ref loads carry the operand's vma but op
-    results drop it, so loop carries mismatch — observed on TPU with
-    jax 0.9). check_vma=False restores the untyped per-device regime:
-    grads w.r.t. replicated inputs stay per-device partials and the
-    explicit psums are the single reduction. Numerical equivalence with
-    single-device training is pinned by tests/test_train_sharded.py and
-    tests/test_parallel.py. Falls back to the legacy check_rep spelling.
-    """
-    try:
-        return jax.shard_map(f, mesh=mesh, in_specs=in_specs,
-                             out_specs=out_specs, check_vma=False)
-    except TypeError:
-        from jax.experimental.shard_map import shard_map as legacy
-        return legacy(f, mesh=mesh, in_specs=in_specs,
-                      out_specs=out_specs, check_rep=False)
+    return jax.shard_map(f, mesh=mesh, in_specs=in_specs,
+                         out_specs=out_specs,
+                         check_vma=backend != "interpret")
 
 
 def out_struct(shape, dtype, *refs):
@@ -104,7 +59,4 @@ def out_struct(shape, dtype, *refs):
     v = frozenset().union(*(vma_of(r) for r in refs))
     if not v:
         return jax.ShapeDtypeStruct(shape, dtype)
-    try:
-        return jax.ShapeDtypeStruct(shape, dtype, vma=v)
-    except TypeError:        # older JAX without vma-typed avals
-        return jax.ShapeDtypeStruct(shape, dtype)
+    return jax.ShapeDtypeStruct(shape, dtype, vma=v)

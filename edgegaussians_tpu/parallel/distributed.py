@@ -1,12 +1,12 @@
 """Multi-host scaffolding: jax.distributed initialization + mesh layout.
 
 The reference is single-process/single-GPU (SURVEY §2.2); this module holds
-the multi-host entry points of the TPU framework. On a multi-host pod slice
-every host runs the same program: ``initialize()`` wires the JAX
-single-controller runtime over DCN, after which ``jax.devices()`` spans the
-whole slice and the existing shard_map training paths
-(parallel/train_sharded.py, parallel/train_dp.py) scale unchanged — XLA
-routes the psums over ICI within a slice and DCN across slices.
+the multi-host entry points. On a multi-host cluster every host runs the
+same program: ``initialize()`` wires the JAX runtime across hosts, after
+which ``jax.devices()`` spans every host's devices and the existing
+shard_map training paths (parallel/train_sharded.py, parallel/train_dp.py)
+scale unchanged — XLA routes the psums over the devices' interconnect
+(NVLink within a host) and the network across hosts.
 
 Single-process (CI, one chip, CPU mesh) is the default: ``initialize()``
 is a no-op unless multi-host coordinates are provided explicitly or via
@@ -29,8 +29,7 @@ def initialize(coordinator_address: Optional[str] = None,
     """Initialize jax.distributed for multi-host runs; no-op otherwise.
 
     Coordinates come from arguments or the standard env vars
-    (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID; on
-    Cloud TPU pods jax.distributed.initialize also auto-detects). Returns
+    (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID). Returns
     True when a multi-process runtime was initialized.
     """
     coordinator_address = coordinator_address or os.environ.get(
@@ -78,7 +77,7 @@ def tiles_mesh(n_devices: Optional[int] = None,
 
     With multiple hosts, jax.devices() already spans the pod; devices of
     one host are contiguous, so a tiles axis across all of them keeps the
-    per-render psum mostly on ICI."""
+    per-render psum mostly inside one host."""
     devs = list(devices if devices is not None else jax.devices())
     if n_devices is not None:
         devs = devs[:n_devices]

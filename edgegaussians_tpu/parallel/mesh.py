@@ -2,7 +2,7 @@
 
 The reference is strictly single-process single-GPU (SURVEY §2.2); all
 scale-out here is new, built on ``jax.sharding.Mesh`` + ``shard_map`` with
-XLA collectives over ICI. Two mesh axes cover this workload's parallelism:
+XLA collectives over the device interconnect. Two mesh axes cover this workload's parallelism:
 
 - ``views``: camera/data parallelism — each device renders a disjoint subset
   of the view batch; Gaussian parameters are replicated and gradients are

@@ -1,7 +1,7 @@
 """Multi-chip training steps: view data-parallelism and tile sharding.
 
 Two scale-out strategies over a ('views', 'tiles') mesh (see mesh.py), both
-expressed with ``shard_map`` so XLA inserts the ICI collectives:
+expressed with ``shard_map`` so XLA inserts the collectives:
 
 - :func:`make_dp_train_step` — *view batch* mode: every device renders its
   shard of the view batch, local gradients are accumulated over a
@@ -16,8 +16,8 @@ expressed with ``shard_map`` so XLA inserts the ICI collectives:
   view's render+backward additionally spans the 'tiles' axis — every
   device renders its tile-row BAND of its view shard (band-partial losses
   from parallel/bands.py), and gradients psum over BOTH axes. DP across
-  hosts rides the cheap per-batch psum over DCN while tile-band splits
-  each render's latency/memory inside a host over ICI. Composition is
+  hosts rides the cheap per-batch psum over the network while tile-band
+  splits each render's latency/memory inside a host over NVLink. Composition is
   exact: band renders equal the matching rows of a full render and band
   losses sum to the full-image loss, so a (v, t) mesh follows the
   (v, 1) trajectory to f32 reduction-order noise
@@ -37,7 +37,7 @@ expressed with ``shard_map`` so XLA inserts the ICI collectives:
   parameter gradients psum back to replicas. Preserves per-view SGD
   semantics while scaling one render.
 
-Gaussian parameters are replicated; gradients ride ICI via ``psum``.
+Gaussian parameters are replicated; gradients are reduced via ``psum``.
 """
 
 from __future__ import annotations
@@ -105,11 +105,6 @@ def make_dp_train_step(cfg: FrameworkConfig, width: int, height: int,
         pair_kernel=mcfg.tile_pair_kernel,
         max_tiles_per_gaussian=mcfg.max_tiles_per_gaussian,
         backend=backend, antialiased=(mcfg.rasterize_mode == "antialiased"))
-    # the pair-domain compositor embeds pallas_calls regardless of the
-    # render backend; their traced bodies are not vma-clean (see
-    # scripts/vma_pallas_repro.py), so strict checking must be skipped
-    # whenever the pair kernel is on
-    vma_backend = "pallas" if mcfg.tile_pair_kernel else backend
     strat_before = losses_strategy_index(pl_cfg.loss_before_alternating)
     strat_less = losses_strategy_index(pl_cfg.less_freq_loss)
     strat_more = losses_strategy_index(pl_cfg.more_freq_loss)
@@ -275,10 +270,10 @@ def make_dp_train_step(cfg: FrameworkConfig, width: int, height: int,
         return gsum, lsum, asum, pairs
 
     @functools.partial(
-        vma_mod.shard_map_for_backend, mesh=mesh,
+        vma_mod.shard_map, mesh=mesh,
         in_specs=(P(), P(), P("views"), P("views"), P("views"), P("views"),
                   P(), P(), P(), P()),
-        out_specs=(P(), P(), P(), P()), backend=vma_backend)
+        out_specs=(P(), P(), P(), P()), backend=backend)
     def sharded_grads(params, alive, images, edge_masks, viewmats, Ks,
                       key, strategy_idx, lambda_proj, bg_ratio):
         # decorrelate per-device RNG along the views axis ONLY: devices in
@@ -473,16 +468,15 @@ def make_tile_sharded_render(cfg: FrameworkConfig, width: int, height: int,
         gathered = packed_sorted[bins.ranks]
         origins = tiles_mod.tile_origins(width, local_h, ts_px)
         basis = pixel_basis(ts_px)
-        counts = jnp.minimum(bins.counts, mcfg.tile_gaussian_capacity)
         tile_imgs = tile_render(gathered, bins.valid.astype(jnp.float32),
                                 origins, basis, bins.ranks, bins.order,
-                                sink, counts, backend)
+                                sink)
         pred = jnp.clip(tile_imgs, 0.0, 1.0)
         # partial sum of |pred-gt| over this shard's valid pixels
         return jnp.sum(jnp.abs(pred - gt_tiles) * pix_valid)
 
     @functools.partial(
-        vma_mod.shard_map_for_backend, mesh=mesh,
+        vma_mod.shard_map, mesh=mesh,
         in_specs=(P(), P(), P(), P(), P("tiles"), P("tiles"), P()),
         out_specs=(P(), P(), P()), backend=backend)
     def sharded_loss_grad(params, alive, viewmat, K, gt_tiles, pix_valid,

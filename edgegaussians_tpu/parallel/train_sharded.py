@@ -7,7 +7,7 @@ optimization trajectory. The axis that CAN be scaled while preserving the
 exact trajectory is the pixel/tile axis (SURVEY §5.7's sequence-parallel
 analog): each device renders a horizontal band of tile rows of the SAME
 view, computes its partial loss terms, and parameter gradients psum back to
-replicas over ICI.
+replicas.
 
 ``make_sharded_proj_grad_fn`` implements the trainer's proj-grad contract
 (train/trainer.py: make_proj_grad_fn) with a ``shard_map`` over the 'tiles'
@@ -58,7 +58,7 @@ def make_sharded_proj_grad_fn(cfg: FrameworkConfig, width: int, height: int,
 
     Exact-semantics scale-out of one view's render+backward across
     ``mesh.shape[axis]`` devices. Gaussian parameters replicated; gradients
-    and the absgrad sink cotangent psum over ICI. Mesh axes other than
+    and the absgrad sink cotangent are psum'd. Mesh axes other than
     ``axis`` (e.g. a 'views' axis) replicate the computation.
     """
     mcfg = cfg.model
@@ -80,16 +80,10 @@ def make_sharded_proj_grad_fn(cfg: FrameworkConfig, width: int, height: int,
         pair_kernel=mcfg.tile_pair_kernel,
         max_tiles_per_gaussian=mcfg.max_tiles_per_gaussian,
         backend=backend, antialiased=(mcfg.rasterize_mode == "antialiased"))
-    # the pair-domain compositor embeds pallas_calls regardless of the
-    # render backend; their traced bodies are not vma-clean (see
-    # scripts/vma_pallas_repro.py), so strict checking must be skipped
-    # whenever the pair kernel is on
-    vma_backend = "pallas" if mcfg.tile_pair_kernel else backend
 
-    @functools.partial(vma_mod.shard_map_for_backend, mesh=mesh,
+    @functools.partial(vma_mod.shard_map, mesh=mesh,
                        in_specs=(P(),) * 9,
-                       out_specs=(P(), P(), P(), P()),
-                       backend=vma_backend)
+                       out_specs=(P(), P(), P(), P()), backend=backend)
     def sharded(params, alive, viewmat, K, gt, edge_mask, strategy_idx,
                 bg_ratio, key):
         shard = jax.lax.axis_index(axis)

@@ -11,7 +11,7 @@ Per render on a d-way 'gauss' axis:
 1. every device projects its N/d parameter shard (quat->R, Sigma, EWA
    conic, antialias compensation — the O(N) math shards perfectly),
 2. ``all_gather`` of the [N,8] packed rows + depths + radii (~4.5 MB at
-   DTU's 131k capacity — cheap over ICI),
+   DTU's 131k capacity — cheap over NVLink),
 3. each device bins + composites its tile-row band against the full set
    (ops.rasterize.rasterize_packed with band args) — the compositing also
    shards d ways; only the fused-key pair sort stays replicated (static
@@ -74,14 +74,11 @@ def make_tp_proj_grad_fn(cfg: FrameworkConfig, width: int, height: int,
         pair_kernel=mcfg.tile_pair_kernel,
         max_tiles_per_gaussian=mcfg.max_tiles_per_gaussian,
         backend=backend)
-    # see train_sharded.py: pair-kernel pallas bodies are not vma-clean
-    vma_backend = "pallas" if mcfg.tile_pair_kernel else backend
     antialiased = mcfg.rasterize_mode == "antialiased"
 
-    @functools.partial(vma_mod.shard_map_for_backend, mesh=mesh,
+    @functools.partial(vma_mod.shard_map, mesh=mesh,
                        in_specs=(P(),) * 9,
-                       out_specs=(P(), P(), P(), P()),
-                       backend=vma_backend)
+                       out_specs=(P(), P(), P(), P()), backend=backend)
     def sharded(params, alive, viewmat, K, gt, edge_mask, strategy_idx,
                 bg_ratio, key):
         n = params.means.shape[0]

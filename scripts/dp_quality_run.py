@@ -9,7 +9,7 @@ runs extraction + eval, and prints chamfer/F against the recorded per-view
 SGD distribution (docs/RESULTS.md: chamfer 0.0106 +- 0.0002, F@10mm
 0.964-0.974 with the reference duplication rule).
 
-Usage (TPU):  python scripts/dp_quality_run.py [--batch 10] [--epochs 400]
+Usage (GPU):  python scripts/dp_quality_run.py [--batch 10] [--epochs 400]
 """
 
 import argparse

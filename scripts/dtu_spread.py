@@ -8,7 +8,7 @@ response jitter) and drives the full shipped DTU pipeline
 (train -> fit_edges -> evaluate) on each, bounding the run-to-run spread
 at that scale.
 
-Usage (TPU):
+Usage (GPU):
     python scripts/dtu_spread.py [--scenes 3] [--epochs 500]
         [--pair_budget -1]
 """

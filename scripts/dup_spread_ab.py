@@ -8,7 +8,7 @@ several training seeds for both strategies in ONE process (the program
 memo is seed-insensitive, so seeds after the first run compile-free) and
 reports final-quality spread per arm.
 
-TPU env required for the training half; extraction/eval run on CPU.
+The training half needs a GPU; extraction/eval run on CPU.
 
     python scripts/dup_spread_ab.py --seeds 3
 """

@@ -13,7 +13,7 @@ Each variant trains `--epochs` epochs from the same trained-model
 checkpoint shapes (capacity 16384 steady state) on the bundled scan;
 steady epoch time = median of the post-compile epochs.
 
-Usage (TPU): python scripts/epoch_ab.py [--epochs 10]
+Usage (GPU): python scripts/epoch_ab.py [--epochs 10]
 """
 
 import argparse

@@ -36,7 +36,7 @@ devices) or by hand:
     python scripts/multiprocess_worker.py --coordinator 127.0.0.1:9733 \
         --num_processes 2 --process_id <i> --strategy tp --out /tmp/mp_out
 
-On a TPU pod each host runs this pattern via cli/train.py, which calls
+On a multi-host cluster each host runs this pattern via cli/train.py, which calls
 distributed.initialize() unconditionally (env-var driven, no-op when
 single-process).
 """

@@ -15,7 +15,7 @@ extraction + eval, and reports:
   - training wall-clock (vs the dense-path baseline),
   - chamfer / F-scores (must match the dense-path distribution).
 
-Usage (TPU):  python scripts/pair_budget_audit.py [--budget 98304]
+Usage (GPU):  python scripts/pair_budget_audit.py [--budget 98304]
               [--config configs/ABC_DexiNed.json] [--epochs 400]
 """
 

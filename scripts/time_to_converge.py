@@ -7,7 +7,7 @@ measures where quality actually saturates: train the shipped config once
 with periodic checkpoints, then run the full extraction + eval pipeline on
 every checkpoint and print quality-vs-wall-clock.
 
-Stage `train` needs the TPU env; stage `eval` is CPU/NumPy. Example:
+Stage `train` needs a GPU; stage `eval` is CPU/NumPy. Example:
 
     python scripts/time_to_converge.py --stage train
     python scripts/time_to_converge.py --stage eval --seeds 3

@@ -2,7 +2,7 @@
 
 The tensorboard_plugin_profile/tensorflow pywrap converters in this image
 disagree about protobuf versions, so this parses the XSpace protobuf WIRE
-FORMAT directly (no generated code): finds the TPU device plane,
+FORMAT directly (no generated code): finds the GPU device planes,
 aggregates event durations by event-metadata name, and prints a top-op
 table. Used for the per-round kernel traces cited in docs/SCALING.md
 §5.1 and the DP overlap experiment (§5.2).
@@ -106,7 +106,7 @@ def top_ops(path, steps=1, top=25, line_filter=None):
         if f != 1 or wt != 2:
             continue
         pname, lines, meta = parse_plane(v)
-        if "TPU" not in pname and "TensorCore" not in pname:
+        if "/device:GPU" not in pname:
             continue
         agg = defaultdict(lambda: [0, 0])        # name -> [ps, count]
         for lb in lines:

@@ -142,9 +142,9 @@ def test_two_process_tp_matches_single_process(tmp_path):
 def test_two_process_composed_dp_tp_matches_single_process(tmp_path):
     """Hierarchical DP x Gaussian-TP with the 'views' axis spanning the
     two processes: the per-batch grad psum rides the process boundary
-    (the DCN leg) while each view row's packed-row all-gather stays
-    process-local (the ICI leg) — SCALING §4's large-capacity recipe
-    (VERDICT r4 #7)."""
+    (the cross-host leg) while each view row's packed-row all-gather
+    stays process-local (the in-host leg) — SCALING §4's large-capacity
+    recipe."""
     r0 = _launch("dp_gauss", str(tmp_path / "mp_dpg"))
 
     worker = _worker_module()
@@ -176,8 +176,9 @@ def test_two_process_composed_dp_tp_matches_single_process(tmp_path):
 @needs4
 def test_two_process_composed_dp_matches_single_process(tmp_path):
     """Hierarchical DP x tile-band with the 'views' axis spanning the two
-    processes: per-batch grad psum rides the process boundary (the DCN
-    leg), per-render band partials psum process-locally (the ICI leg)."""
+    processes: per-batch grad psum rides the process boundary (the
+    cross-host leg), per-render band partials psum process-locally (the
+    in-host leg)."""
     r0 = _launch("dp_tiles", str(tmp_path / "mp_dpt"))
 
     worker = _worker_module()

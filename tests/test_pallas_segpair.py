@@ -1,19 +1,20 @@
-"""Parity tests for the segmented pair-dense compositor
-(ops/pallas_segpair.py, pair_kernel="seg").
+"""Parity tests for the segmented pair compositor (ops/segpair.py,
+pair_kernel="seg").
 
-The v5 path must reproduce the dense single-level rasterizer exactly
-(same compositing semantics): forward image, all four packed-row
-gradient groups, and the absgrad sink cotangent. Specific v5 machinery
-exercised here: cross-brick transmittance/image carries on runs longer
-than one 128-pair brick, the 8-row image carry chain under slow row
-advance, non-multiple-of-128 budgets, and empty scenes. Kernels run in
-interpret mode on CPU; the compiled-TPU check lives in
-tests/test_tpu_hardware.py.
+The seg path must reproduce the dense single-level XLA oracle (same
+compositing semantics): forward image, all four packed-row gradient
+groups, and the absgrad sink cotangent. Exercised here: runs longer than
+one CHUNK (the carried transmittance), chunk-boundary and empty runs,
+budgets that are not a multiple of CHUNK, budget overflow, empty scenes,
+and the algebraic backward rule against autodiff. The kernels run on the
+Pallas interpreter here; chip_smoke.py's render phase checks the compiled
+kernels on the GPU.
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from edgegaussians_tpu.ops.rasterize import rasterize
 
@@ -72,7 +73,7 @@ def _compare(scene, budget=8192, cap=256, atol_img=2e-5, atol_g=3e-4,
     seg = _loss_fn(vm, K, width, height,
                    dict(capacity=cap, dense_capacity=32, overflow_tiles=8,
                         pair_budget=budget, pair_kernel="seg",
-                        backend="jax"))
+                        backend="interpret"))
     (l1, out1), g1 = jax.value_and_grad(dense, argnums=(0, 1, 2, 3, 4),
                                         has_aux=True)(
         means, quats, scales, opac, sink0)
@@ -116,23 +117,26 @@ def test_segpair_respects_capacity_truncation():
     dense = render(dict(capacity=8, backend="jax"))
     seg = render(dict(capacity=8, dense_capacity=4, overflow_tiles=4,
                       pair_budget=8192, pair_kernel="seg",
-                      backend="jax"))
+                      backend="interpret"))
     np.testing.assert_allclose(np.asarray(seg.image),
                                np.asarray(dense.image), atol=2e-5)
 
 
 def test_segpair_matches_v4_pair_kernel():
+    """Seg kernel vs the dense single-level XLA oracle at the settings the
+    removed block-window kernel was checked at."""
     *args, width, height = _scene(n=350, seed=9)
     means, quats, scales, opac, vm, K = args
     sink0 = jnp.zeros((means.shape[0], 2), jnp.float32)
-    common = dict(capacity=256, dense_capacity=32, overflow_tiles=8,
-                  pair_budget=8192, backend="jax")
-    v4 = _loss_fn(vm, K, width, height, dict(common, pair_kernel=True))
-    v5 = _loss_fn(vm, K, width, height, dict(common, pair_kernel="seg"))
-    (l1, _), g1 = jax.value_and_grad(v4, argnums=(0, 1, 2, 3, 4),
+    dense = _loss_fn(vm, K, width, height, dict(capacity=256, backend="jax"))
+    seg = _loss_fn(vm, K, width, height,
+                   dict(capacity=256, dense_capacity=32, overflow_tiles=8,
+                        pair_budget=8192, pair_kernel="seg",
+                        backend="interpret"))
+    (l1, _), g1 = jax.value_and_grad(dense, argnums=(0, 1, 2, 3, 4),
                                      has_aux=True)(
         means, quats, scales, opac, sink0)
-    (l2, _), g2 = jax.value_and_grad(v5, argnums=(0, 1, 2, 3, 4),
+    (l2, _), g2 = jax.value_and_grad(seg, argnums=(0, 1, 2, 3, 4),
                                      has_aux=True)(
         means, quats, scales, opac, sink0)
     np.testing.assert_allclose(float(l2), float(l1), rtol=1e-5)
@@ -175,22 +179,26 @@ def _overflow_scene(width=64, height=64, sparse_per_tile=10, pile=120,
 
 
 def test_segpair_budget_overflow_matches_v4():
-    # budget < num_pairs (pairs past it are dropped, trainer-audited):
-    # seg must stay FINITE and reproduce the v4 pair kernel, which shares
-    # the sort-1 prefix truncation semantics. Regression for the NaN the
-    # raw-count frame ordering produced on mid-stream zero-kept rows.
+    # budget < num_pairs (pairs past it are dropped, trainer-audited): seg
+    # must stay FINITE and reproduce the dense XLA frame path with the same
+    # sort-prefix budget (two-level pair-prefix tables: at this scene every
+    # kept tile run is below the dense capacity, so both keep exactly the
+    # same pairs). Regression for the NaN a raw-count frame ordering
+    # produced on mid-stream zero-kept rows.
     *args, width, height = _overflow_scene()
     means, quats, scales, opac, vm, K = args
     sink0 = jnp.zeros((means.shape[0], 2), jnp.float32)
     budget = 64
     common = dict(capacity=256, dense_capacity=32, overflow_tiles=8,
-                  pair_budget=budget, backend="jax")
-    v4 = _loss_fn(vm, K, width, height, dict(common, pair_kernel=True))
-    v5 = _loss_fn(vm, K, width, height, dict(common, pair_kernel="seg"))
-    (l1, out1), g1 = jax.value_and_grad(v4, argnums=(0, 1, 2, 3, 4),
+                  pair_budget=budget)
+    dense = _loss_fn(vm, K, width, height,
+                     dict(common, pair_kernel=False, backend="jax"))
+    seg = _loss_fn(vm, K, width, height,
+                   dict(common, pair_kernel="seg", backend="interpret"))
+    (l1, out1), g1 = jax.value_and_grad(dense, argnums=(0, 1, 2, 3, 4),
                                         has_aux=True)(
         means, quats, scales, opac, sink0)
-    (l2, out2), g2 = jax.value_and_grad(v5, argnums=(0, 1, 2, 3, 4),
+    (l2, out2), g2 = jax.value_and_grad(seg, argnums=(0, 1, 2, 3, 4),
                                         has_aux=True)(
         means, quats, scales, opac, sink0)
     assert int(out2.num_pairs) > budget, "scene must overflow the budget"
@@ -216,7 +224,7 @@ def test_seg_tables_zero_kept_rows_are_last():
                              width, height)
     for budget in (16, 64, 256, 4096):
         pbins = bin_pairs_frame_order(proj, width, height, 16, 256,
-                                      budget, block_tiles=0)
+                                      budget)
         cf = np.asarray(pbins.counts_f)
         nz = cf > 0
         first_zero = int(np.argmin(nz)) if not nz.all() else len(cf)
@@ -238,5 +246,96 @@ def test_segpair_empty_scene():
     out = rasterize(means, quats, scales, opac, vm, K, width, height,
                     tile_size=16, capacity=64, dense_capacity=16,
                     overflow_tiles=4, pair_budget=1024,
-                    pair_kernel="seg", backend="jax")
+                    pair_kernel="seg", backend="interpret")
     np.testing.assert_allclose(np.asarray(out.image), 0.0)
+
+
+def _run_features(counts, seed, opacity):
+    """Random pair features for tiles with the given run lengths, laid out
+    both as the seg kernel's pair stream and as the oracle's dense frame."""
+    from edgegaussians_tpu.ops.tiles import build_tile_features
+    r = np.random.default_rng(seed)
+    counts = np.asarray(counts, np.int32)
+    T, K = len(counts), max(int(counts.max()), 1)
+    rows = np.zeros((T, K, 8), np.float32)
+    a = r.uniform(0.02, 0.3, (T, K))
+    c = r.uniform(0.02, 0.3, (T, K))
+    b = r.uniform(-0.5, 0.5, (T, K)) * np.sqrt(a * c)
+    rows[..., 0], rows[..., 1], rows[..., 2] = a, b, c
+    rows[..., 3:5] = r.uniform(-4, 20, (T, K, 2))
+    rows[..., 5] = np.log(r.uniform(*opacity, (T, K)))
+    rows[..., 6] = 1.0
+    validf = (np.arange(K)[None, :] < counts[:, None]).astype(np.float32)
+    origins = np.zeros((T, 2), np.float32)
+    frame = build_tile_features(jnp.asarray(rows), jnp.asarray(origins),
+                                jnp.asarray(validf))
+    stream = np.concatenate([np.asarray(frame[t, :n]) for t, n in
+                             enumerate(counts)] + [np.zeros((0, 8))])
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int32)
+    return frame, jnp.asarray(stream, jnp.float32), jnp.asarray(starts), \
+        jnp.asarray(counts)
+
+
+RUN_LENGTHS = {
+    "empty_and_single": [0, 1, 0, 2],
+    "chunk_edges": [15, 16, 17, 31, 32, 33],
+    "long": [200, 3, 77],
+}
+
+
+@pytest.mark.parametrize("lengths", list(RUN_LENGTHS.values()),
+                         ids=list(RUN_LENGTHS))
+@pytest.mark.parametrize("opacity", [(0.02, 0.15), (0.5, 0.99)],
+                         ids=["translucent", "saturating"])
+def test_kernel_matches_oracle_per_run(lengths, opacity):
+    """Forward image and the backward kernel's per-pair gradient rows
+    (the algebraic rule) against autodiff of the XLA segment compositor,
+    tile by tile, for runs shorter than, equal to and longer than a
+    CHUNK, empty runs, and runs that saturate (early stop)."""
+    from edgegaussians_tpu.ops import composite, segpair
+    from edgegaussians_tpu.ops.tiles import pixel_basis
+    frame, stream, starts, counts = _run_features(lengths, 7, opacity)
+    basis = pixel_basis(16)
+    T, P = frame.shape[0], basis.shape[1]
+    ones = jnp.ones((T, P), jnp.float32)
+    img_ref, vjp = jax.vjp(
+        lambda f: composite._composite_jax_seg(f, basis, ones)[0], frame)
+    feats_t = segpair._feature_major(stream)
+    img = segpair._seg_fwd(starts, counts, feats_t, basis, True)
+    np.testing.assert_allclose(np.asarray(img), np.asarray(img_ref),
+                               atol=2e-5)
+
+    g = jnp.asarray(np.random.default_rng(1).normal(size=(T, P)),
+                    jnp.float32)
+    (dframe,) = vjp(g)
+    d6 = segpair._seg_bwd(starts, counts, feats_t, basis, g * (1.0 - img),
+                          True)
+    # per-tile l2-relative: the 1e-4 transmittance stop is a discontinuity,
+    # and a pair whose transmittance lies within f32 rounding of it (the
+    # kernel scans log(1 - alpha), the oracle multiplies) is kept by one
+    # evaluation only; its gradient row is O(1e-4) of the run's
+    for t, n in enumerate(lengths):
+        got = np.asarray(d6[:, int(starts[t]):int(starts[t]) + n]).T
+        want = np.asarray(dframe[t, :n, :6])
+        err = np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-12)
+        assert err < 2e-3, f"tile {t} (run length {n}): l2rel {err:.2e}"
+
+
+@pytest.mark.parametrize("n,opacity", [(8, 0.3), (40, 0.5), (300, 0.95)])
+def test_algebraic_rule_matches_autodiff(n, opacity):
+    """dL/dalpha_l = g (1 - total) / (1 - alpha_l) on kept pairs (and 0
+    past the transmittance stop) equals autodiff of the front-to-back sum
+    with the keep mask held fixed."""
+    from edgegaussians_tpu.ops.projection import TRANSMITTANCE_EPS
+    r = np.random.default_rng(n)
+    alpha = jnp.asarray(r.uniform(0.0, opacity, n), jnp.float32)
+
+    def image(a, keep):
+        t_inc = jnp.cumprod(1.0 - a)
+        return jnp.sum(a * (t_inc / (1.0 - a)) * keep)
+
+    keep = jnp.cumprod(1.0 - alpha) >= TRANSMITTANCE_EPS
+    total, grad = jax.value_and_grad(image)(alpha, keep)
+    rule = jnp.where(keep, (1.0 - total) / (1.0 - alpha), 0.0)
+    np.testing.assert_allclose(np.asarray(rule), np.asarray(grad),
+                               rtol=1e-4, atol=1e-6)

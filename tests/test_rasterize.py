@@ -302,8 +302,7 @@ def test_band_rendering_matches_full_rows():
 
 def test_occupancy_sort_parity():
     """Occupancy-sorted frame rows produce identical images, parameter
-    grads, and absgrad sinks (jax + pallas-interpret, plain + pair-prefix
-    two-level paths)."""
+    grads, and absgrad sinks (plain + pair-prefix two-level paths)."""
     import jax
     import jax.numpy as jnp
     from edgegaussians_tpu.ops.rasterize import rasterize
@@ -322,26 +321,25 @@ def test_occupancy_sort_parity():
     A = tuple(map(jnp.asarray, (means, quats, scales, opac)))
     tgt = jnp.asarray(r.random((H, W)), jnp.float32)
 
-    for backend in ("jax", "pallas"):
-        for kw in [dict(capacity=128, dense_capacity=64, overflow_tiles=8),
-                   dict(capacity=128, dense_capacity=64, overflow_tiles=8,
-                        pair_budget=4096)]:
-            def run(occ):
-                def f_(m, sink):
-                    out = rasterize(m, *A[1:], vm, K, W, H, tile_size=16,
-                                    backend=backend, occupancy_sort=occ,
-                                    absgrad_sink=sink, **kw)
-                    return (jnp.mean(jnp.abs(jnp.clip(out.image, 0, 1)
-                                             - tgt)), out.image)
-                (l, img), (gm, gs) = jax.value_and_grad(
-                    f_, argnums=(0, 1), has_aux=True)(
-                    A[0], jnp.zeros((n, 2)))
-                return np.array(img), np.array(gm), np.array(gs)
-            i0, g0, s0 = run(False)
-            i1, g1, s1 = run(True)
-            np.testing.assert_array_equal(i0, i1)
-            np.testing.assert_allclose(g0, g1, atol=2e-9)
-            np.testing.assert_allclose(s0, s1, atol=1e-10)
+    for kw in [dict(capacity=128, dense_capacity=64, overflow_tiles=8),
+               dict(capacity=128, dense_capacity=64, overflow_tiles=8,
+                    pair_budget=4096)]:
+        def run(occ):
+            def f_(m, sink):
+                out = rasterize(m, *A[1:], vm, K, W, H, tile_size=16,
+                                backend="jax", occupancy_sort=occ,
+                                absgrad_sink=sink, **kw)
+                return (jnp.mean(jnp.abs(jnp.clip(out.image, 0, 1)
+                                         - tgt)), out.image)
+            (l, img), (gm, gs) = jax.value_and_grad(
+                f_, argnums=(0, 1), has_aux=True)(
+                A[0], jnp.zeros((n, 2)))
+            return np.array(img), np.array(gm), np.array(gs)
+        i0, g0, s0 = run(False)
+        i1, g1, s1 = run(True)
+        np.testing.assert_array_equal(i0, i1)
+        np.testing.assert_allclose(g0, g1, atol=2e-9)
+        np.testing.assert_allclose(s0, s1, atol=1e-10)
 
 
 def test_tile_run_starts_matches_searchsorted():

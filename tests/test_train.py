@@ -122,7 +122,8 @@ def test_training_reduces_loss(scene_and_cfg):
     assert int(ts.step) == cfg.training.num_epochs * scene.num_views
 
     # parse logged losses
-    vals = [float(m.split("loss=")[1].split()[0]) for m in first_losses]
+    vals = [float(m.split("loss=")[1].split()[0]) for m in first_losses
+            if "loss=" in m]
     assert vals[-1] < vals[0] * 0.8, vals
 
 
@@ -132,7 +133,8 @@ def test_density_fires_during_training(scene_and_cfg):
     seeds = rng.uniform(-0.5, 0.5, (64, 3)).astype(np.float32)
     msgs = []
     ts = trainer.train(scene, seeds, cfg, backend="jax", log_fn=msgs.append)
-    counts = [int(m.split("alive=")[1].split()[0]) for m in msgs]
+    counts = [int(m.split("alive=")[1].split()[0]) for m in msgs
+              if "alive=" in m]
     # duplication at epoch 2 must have increased the count at some point
     assert max(counts) > 64 or counts[-1] != 64
 
@@ -195,8 +197,7 @@ def test_staged_capacity_training_matches_behavior(scene_and_cfg):
 
 def test_program_memo_reuses_epoch_fn():
     """Sweeps over same-geometry scenes must reuse compiled programs
-    (fresh jax.jit wrappers per scene = a full recompile per scene on
-    remote-attached TPUs)."""
+    (fresh jax.jit wrappers per scene = a full recompile per scene)."""
     import copy
 
     from edgegaussians_tpu.config import FrameworkConfig

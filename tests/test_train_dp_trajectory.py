@@ -252,7 +252,7 @@ def test_dp_tp_composed_matches_flat_trajectory():
 
 
 def test_dp_tp_composed_seg_kernel_step():
-    """DP x TP with the shipped v5 seg kernel: one composed batch step
+    """DP x TP with the shipped seg kernel: one composed batch step
     matches the flat-DP seg step's loss and pair watermark semantics."""
     cfg, ts0, images, edge_masks, viewmats, Ks, W, H = _setup(num_views=4)
     cfg.model.tile_dense_capacity = 32
@@ -261,8 +261,10 @@ def test_dp_tp_composed_seg_kernel_step():
     mesh_c = mesh_mod.make_views_gauss_mesh(2, 4)
     mesh_f = mesh_mod.make_mesh(view_axis=2, tile_axis=1,
                                 devices=jax.devices()[:2])
-    step_c = train_dp.make_dp_train_step(cfg, W, H, "jax", mesh_c)
-    step_f = train_dp.make_dp_train_step(cfg, W, H, "jax", mesh_f)
+    step_c = train_dp.make_dp_train_step(cfg, W, H, "interpret",
+                                          mesh_c)
+    step_f = train_dp.make_dp_train_step(cfg, W, H, "interpret",
+                                          mesh_f)
     with mesh_c:
         ts_c, loss_c, mp_c = step_c(ts0, jnp.int32(0), images, edge_masks,
                                     viewmats, Ks)
@@ -292,11 +294,11 @@ def test_dp_tp_indivisible_capacity_raises():
 
 def test_dp_composed_seg_kernel_matches_flat_trajectory():
     """The PRODUCTION multi-host configuration — hierarchical views x
-    tiles DP with the v5 segmented pair kernel (what every shipped
-    config selects: tile_pair_kernel='seg') — follows the flat
-    views x 1 seg-kernel trajectory over multiple epochs, including a
-    dir/ratio firing. Mirrors test_train_sharded's band-sharded seg
-    parity for the composed-DP path (VERDICT r4 #6)."""
+    tiles DP with the segmented pair kernel (what every shipped config
+    selects: tile_pair_kernel='seg') — follows the flat views x 1
+    seg-kernel trajectory over multiple epochs, including a dir/ratio
+    firing. Mirrors test_train_sharded's band-sharded seg parity for the
+    composed-DP path."""
     cfg, ts0, images, edge_masks, viewmats, Ks, W, H = _setup(num_views=4)
     cfg.model.tile_dense_capacity = 32
     cfg.model.tile_pair_budget = 4096
@@ -305,8 +307,10 @@ def test_dp_composed_seg_kernel_matches_flat_trajectory():
     mesh_c = mesh_mod.make_mesh(view_axis=2, tile_axis=4)
     mesh_f = mesh_mod.make_mesh(view_axis=2, tile_axis=1,
                                 devices=jax.devices()[:2])
-    step_c = train_dp.make_dp_train_step(cfg, W, H, "jax", mesh_c)
-    step_f = train_dp.make_dp_train_step(cfg, W, H, "jax", mesh_f)
+    step_c = train_dp.make_dp_train_step(cfg, W, H, "interpret",
+                                          mesh_c)
+    step_f = train_dp.make_dp_train_step(cfg, W, H, "interpret",
+                                          mesh_f)
 
     ts_c, ts_f = ts0, ts0
     for epoch in range(5):

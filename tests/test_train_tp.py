@@ -103,10 +103,10 @@ def test_tp_proj_grad_large_n_equivalence():
 
 
 def test_tp_proj_grad_seg_pair_kernel_equivalence():
-    """TP band rendering with the v5 segmented pair compositor
-    (tile_pair_kernel="seg") matches the single-device render — the
-    Gaussian-sharded path a DTU config + --mesh_gauss runs when the seg
-    kernel is enabled."""
+    """TP band rendering with the segmented pair compositor
+    (tile_pair_kernel="seg", kernels interpreted) matches the
+    single-device render — the Gaussian-sharded path a DTU config +
+    --mesh_gauss runs."""
     import dataclasses
     n = 2048
     seeds, images, edge_masks, vms, Ks = _scene(1, 64, 64, n)
@@ -119,8 +119,8 @@ def test_tp_proj_grad_seg_pair_kernel_equivalence():
     mesh = Mesh(np.array(jax.devices()[:4]), ("gauss",))
     ts = trainer.init_train_state(seeds, cfg)
 
-    tp = train_tp.make_tp_proj_grad_fn(cfg, W, H, "jax", mesh)
-    sd = trainer.make_proj_grad_fn(cfg, W, H, "jax")
+    tp = train_tp.make_tp_proj_grad_fn(cfg, W, H, "interpret", mesh)
+    sd = trainer.make_proj_grad_fn(cfg, W, H, "interpret")
     args = (ts.gaussians.params, ts.gaussians.alive, vms[0], Ks[0],
             images[0], edge_masks[0], jnp.int32(0), jnp.float32(1.0),
             jax.random.PRNGKey(0))

@@ -1,11 +1,12 @@
 """Strict-vma regression tests for the absgrad sink under shard_map.
 
-Round-1 driver failure (MULTICHIP_r01.json): the custom VJP of tile_render
-produced a 'views'-varying dsink cotangent for an unvarying sink primal,
-which strict varying-manual-axes JAX rejects. The fix declares the sink
-varying (ops.vma.match_vma) at the grad-argument creation site — OUTSIDE
-the differentiated function, so the pvary does not transpose into a psum.
-These tests pin both the mechanism and the numerics.
+A custom VJP that produces a 'views'-varying dsink cotangent for an
+unvarying sink primal is rejected by strict varying-manual-axes JAX. The
+sink is declared varying (ops.vma.match_vma) at the grad-argument creation
+site — OUTSIDE the differentiated function, so the pcast does not
+transpose into a psum — and the rasterizer makes its render data vary
+wherever the sink does. These tests pin both the mechanism and the
+numerics.
 """
 
 import jax
@@ -139,11 +140,10 @@ def test_tile_render_grad_under_shard_map_views():
 
 
 def test_checked_mode_sharded_proj_grad_equivalence():
-    """The production tile-band proj-grad runs under check_vma=True for the
-    pure-XLA backend (ops.vma.shard_map_for_backend) and matches the
-    single-device values — the strict type system that catches psum
-    double-reduction bugs at trace time (VERDICT r2 item 3) is live again
-    on every non-Pallas path."""
+    """The production tile-band proj-grad runs under check_vma=True
+    (ops.vma.shard_map) and matches the single-device values — the strict
+    type system that catches psum double-reduction bugs at trace time is
+    live on every render path."""
     from edgegaussians_tpu.config import FrameworkConfig
     from edgegaussians_tpu.parallel import train_sharded
     from edgegaussians_tpu.train import trainer
@@ -184,57 +184,53 @@ def test_checked_mode_sharded_proj_grad_equivalence():
         np.testing.assert_allclose(np.array(a_s), np.array(a_r), atol=1e-6)
 
 
-def test_strict_vma_pallas_repro_still_fails():
-    """Pin the reason the Pallas shard_maps run check_vma=False
-    (scripts/vma_pallas_repro.py; VERDICT r4 #9): inside a strict-vma
-    shard_map, a Pallas body's ref loads carry the operand's vma but
-    primitive results drop it, so fori_loop carries mixing ref-derived
-    values with fresh constants mismatch. Re-probed against the
-    INSTALLED JAX every suite run — when this starts passing under
-    check_vma=True, flip ops.vma.shard_map_for_backend to checked mode
-    for the pallas backend and delete this pin."""
-    import jax
-    import jax.numpy as jnp
-    import numpy as np
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-    from jax.sharding import Mesh, PartitionSpec as P
+def test_seg_kernel_grads_under_checked_shard_map():
+    """The Pallas seg compositor under a views-sharded ops.vma.shard_map:
+    per-device loss and absgrad equal the single-device values. The
+    interpreted kernels run with vma checking off (ops.vma.shard_map), so
+    the replicated means' gradient stays each device's partial — the
+    value the callers' explicit psum reduces."""
+    from edgegaussians_tpu.ops.rasterize import rasterize
 
-    from edgegaussians_tpu.ops import vma
+    r = np.random.default_rng(4)
+    n, W, H, nv = 120, 48, 32, 4
+    means = r.uniform(-0.4, 0.4, (n, 3)).astype(np.float32)
+    means[:, 2] += 2.0
+    quats = jnp.asarray(r.normal(size=(n, 4)), jnp.float32)
+    scales = jnp.asarray(np.exp(r.uniform(-4.5, -3.0, (n, 3))), jnp.float32)
+    opac = jnp.asarray(r.uniform(0.2, 0.9, n), jnp.float32)
+    means = jnp.asarray(means)
+    K = jnp.array([[40.0, 0, W / 2], [0, 40.0, H / 2], [0, 0, 1]],
+                  jnp.float32)
+    vm = jnp.eye(4, dtype=jnp.float32)
+    images = jnp.asarray(r.random((nv, H, W)), jnp.float32)
 
-    def kernel(x_ref, o_ref):
-        def body(i, acc):
-            return acc + x_ref[i, :] * 2.0
+    def per_view(img, sink):
+        def loss(m, s):
+            out = rasterize(m, quats, scales, opac, vm, K, W, H,
+                            tile_size=16, capacity=64, pair_budget=4096,
+                            pair_kernel="seg", backend="interpret",
+                            absgrad_sink=s)
+            return jnp.mean(jnp.abs(jnp.clip(out.image, 0, 1) - img))
+        l, (gm, gs) = jax.value_and_grad(loss, argnums=(0, 1))(means, sink)
+        return l, gm, jnp.linalg.norm(gs, axis=-1)
 
-        o_ref[0, :] = jax.lax.fori_loop(
-            0, x_ref.shape[0], body, jnp.zeros((128,), jnp.float32))
+    def sharded(imgs):
+        sink = vma.match_vma(jnp.zeros((n, 2), jnp.float32), imgs)
+        l, gm, a = per_view(imgs[0], sink)
+        return l[None], gm[None], a[None]
 
-    def pcall(x):
-        return pl.pallas_call(
-            kernel,
-            in_specs=[pl.BlockSpec(memory_space=pltpu.ANY)],
-            out_specs=pl.BlockSpec(memory_space=pltpu.ANY),
-            out_shape=vma.out_struct((1, 128), jnp.float32, x),
-            interpret=True,
-        )(x)
-
-    mesh = Mesh(np.array(jax.devices()[:4]), ("tiles",))
-
-    def f(x):
-        return jax.lax.psum(pcall(x), "tiles")
-
-    x = jnp.ones((4 * 8, 128), jnp.float32)
-    ok = jax.jit(jax.shard_map(f, mesh=mesh, in_specs=P("tiles"),
-                               out_specs=P(), check_vma=False))(x)
-    assert float(ok.sum()) > 0
-
-    try:
-        jax.jit(jax.shard_map(f, mesh=mesh, in_specs=P("tiles"),
-                              out_specs=P(), check_vma=True))(x)
-        still_fails = False
-    except Exception:
-        still_fails = True
-    assert still_fails, (
-        "strict-vma now ACCEPTS pallas bodies on this JAX — flip "
-        "ops.vma.shard_map_for_backend to checked mode for pallas and "
-        "retire this pin (scripts/vma_pallas_repro.py)")
+    sh = vma.shard_map(sharded, mesh=_mesh(nv), in_specs=(P("views"),),
+                       out_specs=(P("views"), P("views"), P("views")),
+                       backend="interpret")
+    ls, gm, absg = jax.jit(sh)(images)
+    refs = [per_view(images[v], jnp.zeros((n, 2), jnp.float32))
+            for v in range(nv)]
+    for v, (l_ref, g_ref, a_ref) in enumerate(refs):
+        assert np.isclose(float(ls[v]), float(l_ref), rtol=1e-5)
+        np.testing.assert_allclose(np.asarray(absg[v]), np.asarray(a_ref),
+                                   rtol=1e-4, atol=1e-8)
+        # the sharded program is compiled (fused) separately from the
+        # single-device one: near-zero entries carry ~1e-7 f32 rounding
+        np.testing.assert_allclose(np.asarray(gm[v]), np.asarray(g_ref),
+                                   rtol=1e-4, atol=1e-6)
